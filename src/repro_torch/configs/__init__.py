@@ -1,0 +1,33 @@
+"""Architecture configs of the port: the encoder family of the main path.
+
+The paper's own feature extractors (ResNet-50 / ViT-B / CLIP ViT-B/32) are
+stood in by a small encoder config (DESIGN.md §6); ``hubert-xlarge`` is
+the full-width encoder the port is driven at on the card.  The other
+families of ``repro/configs`` wait for their slices (ROADMAP).
+"""
+from repro_torch.configs.hubert_xlarge import CONFIG as _hubert
+from repro_torch.models.config import ModelConfig
+
+ARCHS: dict[str, ModelConfig] = {c.name: c for c in [_hubert]}
+
+FOUNDATION_STANDIN = ModelConfig(
+    name="foundation-standin",
+    family="encoder",
+    n_layers=4,
+    d_model=256,
+    n_heads=4,
+    n_kv_heads=4,
+    d_ff=512,
+    vocab_size=64,
+    mlp_variant="gelu",
+    causal=False,
+    frame_embed_dim=64,
+)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name == "foundation-standin":
+        return FOUNDATION_STANDIN
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
+    return ARCHS[name]

@@ -1,0 +1,74 @@
+"""Synthetic class-structured datasets and FL partitioners, in numpy.
+
+A copy of the numpy parts of ``repro/data/__init__.py``: the same seeds give
+bit-identical datasets and client splits.  ``make_dataset`` returns numpy
+arrays; callers move them to a device.  See DESIGN.md §6 for why synthetic
+class-Gaussian data stands in for the paper's image datasets.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetConfig:
+    n_classes: int = 10
+    n_per_class: int = 200
+    input_dim: int = 64
+    class_sep: float = 3.0      # distance scale between class centers
+    noise: float = 1.0          # within-class stddev
+    n_domains: int = 1          # covariate-shift domain count
+    domain_shift: float = 2.0   # per-domain offset scale
+    seed: int = 0
+
+
+def make_dataset(cfg: DatasetConfig, domain: int = 0, split: int = 0
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Class-Gaussian dataset: x = center_c + domain_offset + noise.
+
+    ``split`` varies the sample noise only (0 = train, 1 = test, …) while
+    keeping the class geometry fixed.  Returns (x f32 (n, input_dim),
+    labels int32 (n,)).
+    """
+    rng = np.random.RandomState(cfg.seed)
+    centers = rng.randn(cfg.n_classes, cfg.input_dim) * cfg.class_sep
+    offsets = rng.randn(max(cfg.n_domains, 1), cfg.input_dim) \
+        * cfg.domain_shift
+    mixes = np.stack([
+        np.eye(cfg.input_dim)
+        + 0.1 * cfg.domain_shift * rng.randn(cfg.input_dim, cfg.input_dim)
+        for _ in range(max(cfg.n_domains, 1))
+    ])
+    rng_d = np.random.RandomState(cfg.seed * 9973 + domain * 101 + split + 1)
+    labels = np.repeat(np.arange(cfg.n_classes), cfg.n_per_class)
+    x = centers[labels] + cfg.noise * rng_d.randn(len(labels), cfg.input_dim)
+    if cfg.n_domains > 1:   # domain transform only in covariate-shift mode
+        x = x @ mixes[domain].T + offsets[domain]
+    perm = rng_d.permutation(len(labels))
+    return x[perm].astype(np.float32), labels[perm].astype(np.int32)
+
+
+def dirichlet_partition(labels, n_clients: int, beta: float = 0.1,
+                        seed: int = 0) -> List[np.ndarray]:
+    """Paper §5.2: per-class Dirichlet(β) allocation over clients."""
+    labels = np.asarray(labels)
+    rng = np.random.RandomState(seed)
+    n_classes = int(labels.max()) + 1
+    client_idx = [[] for _ in range(n_clients)]
+    for c in range(n_classes):
+        idx = np.where(labels == c)[0]
+        rng.shuffle(idx)
+        props = rng.dirichlet([beta] * n_clients)
+        cuts = (np.cumsum(props) * len(idx)).astype(int)[:-1]
+        for i, part in enumerate(np.split(idx, cuts)):
+            client_idx[i].extend(part.tolist())
+    return [np.asarray(sorted(ix), np.int64) for ix in client_idx]
+
+
+def iid_shards(n: int, n_clients: int, seed: int = 0) -> List[np.ndarray]:
+    rng = np.random.RandomState(seed)
+    perm = rng.permutation(n)
+    return [np.sort(s) for s in np.array_split(perm, n_clients)]

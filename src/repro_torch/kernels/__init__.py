@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels for the hot spots, with plain PyTorch versions.
+
+  gmm_estep        diag/spher GMM E-step (+ row logsumexp), f32
+  flash_attention  online-softmax attention: causal, window, prefix, GQA
+
+``ops`` dispatches by tensor device; ``ref`` holds the plain versions that
+define what each kernel computes.  Kernels build at first use (``_build``).
+"""
+from repro_torch.kernels import ops, ref
+
+__all__ = ["ops", "ref"]

@@ -1,0 +1,119 @@
+"""Plain PyTorch versions of the kernels (port of ``repro/kernels/ref.py``).
+
+These define what each CUDA kernel must compute.  ``ops`` runs them for
+tensors on the CPU; ``chip_smoke.py`` holds each kernel against them on the
+card.  ``CUDA_CALLS`` counts the calls made on CUDA tensors, so a run can
+show that its main path never took a plain version on the card.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+_LOG2PI = math.log(2.0 * math.pi)
+
+CUDA_CALLS: Dict[str, int] = {"estep": 0, "estep_fused": 0, "attention": 0}
+
+
+def _note(name: str, t: torch.Tensor) -> None:
+    if t.is_cuda:
+        CUDA_CALLS[name] += 1
+
+
+def _expand_var(var: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
+    """spher (…, K) → diag (…, K, d); diag passes through."""
+    var = var.float()
+    if var.dim() == mu.dim() - 1:
+        var = var[..., None]
+    return var.expand(mu.shape)
+
+
+def _estep(x, mu, var, pi):
+    x = x.float()
+    mu = mu.float()
+    var = _expand_var(var, mu)
+    d = x.shape[-1]
+    inv = 1.0 / var
+    maha = (torch.einsum("...nd,...kd->...nk", x.square(), inv)
+            - 2.0 * torch.einsum("...nd,...kd->...nk", x, mu * inv)
+            + (mu.square() * inv).sum(-1)[..., None, :])
+    logdet = var.log().sum(-1)
+    logp = -0.5 * (d * _LOG2PI + logdet[..., None, :] + maha)
+    logpi = pi.float().clamp_min(1e-20).log()
+    return logp + logpi[..., None, :]
+
+
+def estep_ref(x: torch.Tensor, mu: torch.Tensor, var: torch.Tensor,
+              pi: torch.Tensor) -> torch.Tensor:
+    """Diag/spher E-step log-responsibility numerators.
+
+    x: (…, N, d); mu: (…, K, d); var: diag (…, K, d) or spher (…, K);
+    pi: (…, K).  Returns log[π_k N(x_n | μ_k, Σ_k)]: (…, N, K) f32.
+    """
+    _note("estep", x)
+    return _estep(x, mu, var, pi)
+
+
+def estep_fused_ref(x: torch.Tensor, mu: torch.Tensor, var: torch.Tensor,
+                    pi: torch.Tensor):
+    """(log-numerators, their row logsumexp) — the fused kernel's contract.
+
+    Accepts shared-x batching, x (Bx, N, d) against mu (B, K, d) with
+    B % Bx == 0, as well as plain 2D inputs.  Shared-x batches fold the
+    r = B // Bx fits of one feature block into one (N, d)·(d, r·K)
+    product instead of expanding x to (B, N, d).
+    """
+    _note("estep_fused", x)
+    if mu.dim() == 3 and x.dim() == 2:
+        x = x[None]
+    if mu.dim() == 3 and x.shape[0] != mu.shape[0]:
+        B, K, d = mu.shape
+        Bx, N = x.shape[0], x.shape[1]
+        if B % Bx:
+            raise ValueError(f"batch {B} must be a multiple of the {Bx} "
+                             "shared feature blocks")
+        r = B // Bx
+        var = _expand_var(var, mu)
+
+        def fold(a):
+            return a.reshape((Bx, r * K) + tuple(a.shape[2:]))
+        logp = _estep(x, fold(mu), fold(var), fold(pi))        # (Bx,N,r·K)
+        logp = logp.reshape(Bx, N, r, K).permute(0, 2, 1, 3) \
+            .reshape(B, N, K)
+    else:
+        logp = _estep(x, mu, var, pi)
+    return logp, torch.logsumexp(logp, dim=-1)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  prefix: int = 0) -> torch.Tensor:
+    """Multi-head attention: q (B, H, Sq, D); k, v (B, Hkv, Sk, D).
+
+    Query n attends key m iff (not causal) or m ≤ n, with the queries at
+    the LAST Sq positions of the Sk context; window > 0 also requires
+    n − m < window; prefix > 0 makes the first ``prefix`` keys visible to
+    every query.  GQA maps q head h to kv head h // (H // Hkv).
+    """
+    _note("attention", q)
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qf = q.float().reshape(B, Hkv, G, Sq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) / math.sqrt(D)
+    q_pos = torch.arange(Sq, device=q.device) + (Sk - Sq)
+    k_pos = torch.arange(Sk, device=q.device)
+    rel = q_pos[:, None] - k_pos[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= rel >= 0
+    if window > 0:
+        mask &= rel < window
+    if prefix > 0:
+        mask |= (k_pos < prefix)[None, :]
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(B, H, Sq, D).to(q.dtype)
