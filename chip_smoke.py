@@ -6,11 +6,14 @@
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each one against its plain PyTorch version on the card and times
 both, then runs the paper's Algorithm 1 through the port's entry points
-at the full width of hubert-xlarge (48 layers, d_model 1280, random
-weights from a seed): foundation features → per-client class-wise diag
-GMMs by batched EM → bf16 wire → the server's fused head → accuracy
-against the centralized oracle.  Launch counters show that the main path
-ran through every kernel and never through a plain version.
+with three foundation backbones, each at its full width and depth with
+random weights from a seed: hubert-xlarge (encoder, 48 layers, d_model
+1280), rwkv6-3b (RWKV6, 32 layers, d_model 2560) and zamba2-7b (81
+Mamba2 layers and a shared attention block, d_model 3584).  Each path:
+foundation features → per-client class-wise diag GMMs by batched EM →
+bf16 wire → the server's fused head → accuracy against the centralized
+oracle.  Launch counters, zeroed before each path and read after it, show
+that each path ran through its kernels and never through a plain version.
 
 Prints one JSON object per line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -34,6 +37,11 @@ HBM_BYTES_S = 3.35e12
 ESTEP_TOL = 3e-4           # tests/test_kernels.py
 ATTN_TOL_F32 = 2e-3
 ATTN_TOL_BF16 = 5e-2
+WKV6_TOL_F32 = 1e-4        # tests/test_wkv6_kernel.py
+SSD_TOL_F32 = 2e-4         # tests/test_ssd_kernel.py
+# bf16 recurrences: kernel and plain version each round one f32 result to
+# bf16, so they are at most one bf16 step (2^-8 relative) apart
+REC_TOL_BF16 = 1e-2
 N_TIMED = 25
 
 
@@ -83,7 +91,7 @@ def device_profile(torch, fn) -> dict:
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             ms = float(getattr(e, "self_device_time_total", 0.0)) / 1e3
             if ms > 0:
-                kernels[e.key[:90]] = kernels.get(e.key[:90], 0.0) + ms
+                kernels[e.key[:160]] = kernels.get(e.key[:160], 0.0) + ms
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms,
@@ -101,8 +109,8 @@ def check_close(torch, name, got, exp, tol, **shape) -> float:
     finite = bool(torch.isfinite(got).all())
     max_err = float(err.max())
     emit({"phase": "kernel_check", "kernel": name, **shape,
-          "max_abs_err": max_err, "tol": tol, "mismatches": bad,
-          "finite": finite})
+          "max_abs_err": max_err, "max_abs": float(exp.abs().max()),
+          "tol": tol, "mismatches": bad, "finite": finite})
     if bad or not finite:
         raise AssertionError(f"{name} {shape}: {bad} elements outside "
                              f"tol {tol} (max abs err {max_err})")
@@ -185,6 +193,9 @@ def kernel_phase(torch, dev, card):
         (1, 2, 2, 128, 128, 16, True, 32, 8, torch.bfloat16),
         (1, 4, 4, 128, 128, 32, True, 0, 16, torch.bfloat16),
         (1, 2, 2, 200, 200, 128, False, 0, 0, torch.bfloat16),
+        # zamba2-7b's shared causal block, then ragged in f32
+        (64, 32, 32, 512, 512, 112, True, 0, 0, torch.bfloat16),
+        (2, 4, 4, 200, 200, 112, True, 0, 0, torch.float32),
     ]
     for B, H, Hkv, Sq, Sk, D, causal, window, prefix, dt in cases:
         q = torch.randn(B, H, Sq, D, generator=g, device=dev).to(dt)
@@ -197,17 +208,25 @@ def kernel_phase(torch, dev, card):
                           ref.attention_ref(q, k, v, **kw), tol,
                           B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D,
                           dtype=str(dt), **kw)
-        if "flash_attention" not in res:        # the encoder's shape
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            res["flash_attention"] = dict(
-                max_abs_err=err,
-                ms=time_ms(torch, lambda: FA.flash_attention(q, k, v, **kw)),
-                plain_ms=time_ms(torch, lambda: ref.attention_ref(q, k, v,
-                                                                  **kw)),
-                library_ms=time_ms(torch, lambda: sdpa(q, k, v)),
-                flops=4.0 * B * H * Sq * Sk * D,
-                bytes=2.0 * (2 * B * H * Sq * D + 2 * B * Hkv * Sk * D),
-                peak=BF16_FLOPS)
+        # time the main paths' shapes: the encoder's, zamba2-7b's D = 112
+        key = {(256, 16, 64, 80, False): "flash_attention",
+               (64, 32, 512, 112, True): "flash_attention_d112"}.get(
+                   (B, H, Sq, D, causal))
+        if dt != torch.bfloat16 or key is None:
+            continue
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        # key pairs a causal query row needs: what this run's data needs
+        pairs = Sq * (Sq + 1) / 2 if causal else Sq * Sk
+        res[key] = dict(
+            max_abs_err=err, shape=[B, H, Sq, D], causal=causal,
+            ms=time_ms(torch, lambda: FA.flash_attention(q, k, v, **kw)),
+            plain_ms=time_ms(torch, lambda: ref.attention_ref(q, k, v,
+                                                              **kw)),
+            library_ms=time_ms(torch, lambda: sdpa(q, k, v,
+                                                   is_causal=causal)),
+            flops=4.0 * B * H * pairs * D,
+            bytes=2.0 * (2 * B * H * Sq * D + 2 * B * Hkv * Sk * D),
+            peak=BF16_FLOPS)
     for dt in (torch.float32, torch.bfloat16):
         q = torch.randn(1, 2, 8, 32, generator=g, device=dev).to(dt)
         k = torch.randn(1, 2, 4, 32, generator=g, device=dev).to(dt)
@@ -219,15 +238,109 @@ def kernel_phase(torch, dev, card):
         if masked != 0.0:
             raise AssertionError(f"fully masked rows gave {masked}, not 0")
 
+    recurrent_checks(torch, dev, g, res)
+
     for name, r in res.items():
         r["bound_ms"] = 1e3 * max(r["flops"] / r["peak"],
                                   r["bytes"] / HBM_BYTES_S)
         r["bound_by"] = ("operations" if r["flops"] / r["peak"]
                          >= r["bytes"] / HBM_BYTES_S else "bytes")
+        if "design_flops" in r:
+            r["design_bound_ms"] = 1e3 * r["design_flops"] / F32_FLOPS
         emit({"phase": "kernel_time", "kernel": name, "card": card,
               **{k: r[k] for k in ("ms", "plain_ms", "library_ms",
-                                   "bound_ms", "bound_by")}})
+                                   "bound_ms", "bound_by", "design_bound_ms")
+                 if k in r}})
     return res
+
+
+# bf16 cases at the paths' head sizes: tag, B, H, T, Dh, chunk, s0 scale;
+# the main path's shape (s0 = 0, as the path passes it), then T = 200,
+# which no chunk divides.  The f32 cases are kernels.checks' shapes.
+WKV6_BF16 = [("main", 64, 40, 512, 64, 64, 0.0),
+             ("T=200", 4, 40, 200, 64, 64, 1.0)]
+# tag, Bt, H, T, N, P, chunk, s0 scale
+SSD_BF16 = [("main", 64, 112, 512, 64, 64, 256, 0.0),
+            ("T=200", 4, 112, 200, 64, 64, 256, 1.0)]
+
+
+def recurrent_checks(torch, dev, g, res):
+    """wkv6 and ssd, output and final state: bf16 at the main path's shape
+    and at T = 200 against their plain versions; f32 at the reference
+    tests' shapes with a nonzero s0 against their plain versions; f32 at
+    the paths' head sizes and T = 200 against the float64 step recurrence.
+    Times at the main path's shapes."""
+    from repro_torch.kernels import checks, ref
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels import wkv6 as WKV
+
+    def check(name, got, exp, tol, **shape):
+        return max(check_close(torch, name, a, b, tol, output=o, **shape)
+                   for a, b, o in zip(got, exp, ("out", "state")))
+
+    kinds = {"wkv6": (WKV.wkv6, ref.wkv6_ref, checks.wkv6_steps,
+                      checks.wkv6_inputs, "B,H,T,Dh", WKV6_TOL_F32,
+                      WKV6_BF16, checks.WKV6_SHAPES, checks.WKV6_LONG),
+             "ssd": (SSD.ssd, ref.ssd_ref, checks.ssd_steps,
+                     checks.ssd_inputs, "Bt,H,T,N,P", SSD_TOL_F32,
+                     SSD_BF16, checks.SSD_SHAPES, checks.SSD_LONG)}
+    for name, (fn, plain, steps, inputs, dims, tol, bf16_cases, shapes,
+               long_shape) in kinds.items():
+        cases = [(tag, dims_, chunk, torch.bfloat16, s0s, "plain")
+                 for tag, *dims_, chunk, s0s in bf16_cases]
+        cases += [("ref T%chunk" if c[2] % c[-1] else "ref", c[:-1], c[-1],
+                   torch.float32, 1.0, "plain") for c in shapes]
+        cases.append(("T=200", long_shape[:-1], long_shape[-1],
+                      torch.float32, 1.0, "float64 steps"))
+        for tag, dims_, chunk, dt, s0s, against in cases:
+            args = inputs(g, dev, *dims_, dt, s0s, model_like=tag == "main")
+            if against == "plain":
+                exp = plain(*args, chunk=chunk)
+            else:
+                exp = steps(*(a.double() for a in args))
+            err = check(name, fn(*args, chunk=chunk), exp,
+                        REC_TOL_BF16 if dt == torch.bfloat16 else tol,
+                        case=tag, **dict(zip(dims.split(","), dims_)),
+                        chunk=chunk, dtype=str(dt), against=against)
+            if tag == "main":
+                res[name] = dict(
+                    max_abs_err=err,
+                    ms=time_ms(torch, lambda: fn(*args, chunk=chunk)),
+                    plain_ms=time_ms(torch, lambda: plain(*args,
+                                                          chunk=chunk)),
+                    library_ms=None,
+                    **recurrent_work(name, *dims_, chunk=chunk))
+
+
+def recurrent_work(name, B, H, T, *dims, chunk):
+    """The bytes that wkv6 / ssd must move and the operations of their
+    chunked form (chunk C) on the bf16 tensor cores: the function's bound.
+    ``design_flops``: the f32 operations that the sequential CUDA-core
+    kernel executes, the bound of this design."""
+    if name == "wkv6":
+        (Dh,) = dims
+        n = B * H * T * Dh
+        return dict(
+            # r kᵀ and (its masked product) v within a chunk, r S and kᵀ v
+            flops=4.0 * n * (chunk + Dh),
+            # r, k, v, out bf16; lw f32; u; s0 read, final S written
+            bytes=2.0 * 4 * n + 4.0 * n + 4.0 * H * Dh
+            + 2 * 4.0 * B * H * Dh * Dh,
+            peak=BF16_FLOPS,
+            # per step and state element: k·v, u·kv + S, r·(…), w·S + kv
+            design_flops=7.0 * n * Dh)
+    N, P = dims
+    n = B * H * T * P
+    return dict(
+        # C Bᵀ once per chunk for all heads; (L ⊙ C Bᵀ) x, C S, Bᵀ x per head
+        flops=2.0 * B * T * chunk * N + B * H * T * (2.0 * chunk * P
+                                                     + 4.0 * N * P),
+        # x, y bf16; a f32; B, C bf16; s0 read, final S written
+        bytes=2.0 * 2 * n + 4.0 * B * H * T + 2.0 * 2 * B * T * N
+        + 2 * 4.0 * B * H * N * P,
+        peak=BF16_FLOPS,
+        # per step and state element: e^a·S + B·x (3), C·S (2)
+        design_flops=5.0 * n * N)
 
 
 def frames_of(np, x, n_frames, frame_dim):
@@ -239,8 +352,42 @@ def frames_of(np, x, n_frames, frame_dim):
     return np.pad(fr, ((0, 0), (0, 0), (0, frame_dim - per)))
 
 
-def main_path(torch, dev, card):
+def tokens_of(np, x, n_bins=4):
+    """Each value becomes one token id by uniform binning of [−6, 6] into
+    ids 1 … n_bins, clipped at the ends.  The bins are coarse: one id per
+    fine bin gives every value its own random embedding, and a mean-pooled
+    feature then keeps no class signal; with 512 values in 4 bins, the
+    token counts and their order still tell the classes apart."""
+    ids = np.floor((x + 6.0) / 12.0 * n_bins).astype(np.int64)
+    return 1 + np.clip(ids, 0, n_bins - 1)
+
+
+def to_cpu(tree):
+    return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+def n_params_of(tree) -> int:
+    return sum(n_params_of(v) if isinstance(v, dict) else v.numel()
+               for v in tree.values())
+
+
+# each backbone's main path: the kernels it must launch, per layer and
+# batch, besides the E-step of the client EM
+PATHS = {
+    "hubert-xlarge": {"flash_attention": lambda cfg: cfg.n_layers},
+    "rwkv6-3b": {"wkv6": lambda cfg: cfg.n_layers},
+    "zamba2-7b": {"ssd": lambda cfg: cfg.n_layers,
+                  "flash_attention": lambda cfg: cfg.n_layers
+                  // cfg.attn_every},
+}
+
+
+def main_path(torch, dev, card, name):
+    """One FedPFT round with ``name``'s features, counted; then where its
+    time goes, and its features against the plain CPU path."""
     import dataclasses
+    import gc
 
     import numpy as np
 
@@ -253,34 +400,42 @@ def main_path(torch, dev, card):
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
 
-    cfg = get_config("hubert-xlarge")
+    cfg = get_config(name)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     t0 = time.perf_counter()
     params = M.init_params(cfg, g)
     torch.cuda.synchronize()
-    n_params = sum(v.numel() for v in params["blocks"].values()) \
-        + sum(params[k].numel() for k in ("frame_proj", "mask_emb",
-                                          "final_norm", "lm_head"))
-    emit({"phase": "init", "model": cfg.name, "n_layers": cfg.n_layers,
-          "d_model": cfg.d_model, "n_params": n_params,
+    n_params = n_params_of(params)
+    emit({"phase": "init", "model": cfg.name, "family": cfg.family,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "n_params": n_params, "param_bytes": 2 * n_params,
           "s": time.perf_counter() - t0, "card": card})
 
-    dcfg = D.DatasetConfig(n_classes=10, n_per_class=400, input_dim=512,
-                           class_sep=3.0)
+    if cfg.family == "encoder":
+        per_class, batch, key = (400, 100), 256, "frames"
+    else:
+        per_class, batch, key = (100, 25), 64, "tokens"
+    dcfg = D.DatasetConfig(n_classes=10, n_per_class=per_class[0],
+                           input_dim=512, class_sep=3.0)
     x, y = D.make_dataset(dcfg)
-    xt, yt = D.make_dataset(dataclasses.replace(dcfg, n_per_class=100),
-                            split=1)
-    fr = frames_of(np, x, 64, cfg.frame_embed_dim)
-    frt = frames_of(np, xt, 64, cfg.frame_embed_dim)
+    xt, yt = D.make_dataset(dataclasses.replace(
+        dcfg, n_per_class=per_class[1]), split=1)
+    if cfg.family == "encoder":
+        inp = frames_of(np, x, 64, cfg.frame_embed_dim)
+        inp_t = frames_of(np, xt, 64, cfg.frame_embed_dim)
+    else:                                   # T = 512 tokens per sequence
+        inp, inp_t = tokens_of(np, x), tokens_of(np, xt)
+
+    def feats_of(a):
+        return torch.cat([M.features(cfg, params, {key: a[i:i + batch]})
+                          for i in range(0, len(a), batch)])
 
     ops.reset_launch_counts()
     # ---- the counted run: features → clients → wire → head → accuracy
     t0 = time.perf_counter()
-    feats = torch.cat([M.features(cfg, params, {"frames": fr[i:i + 256]})
-                       for i in range(0, len(fr), 256)])
-    feats_t = torch.cat([M.features(cfg, params, {"frames": frt[i:i + 256]})
-                         for i in range(0, len(frt), 256)])
+    feats = feats_of(inp)
+    feats_t = feats_of(inp_t)
     torch.cuda.synchronize()
     t_feat = time.perf_counter() - t0
     y_dev, yt_dev = torch.from_numpy(y).to(dev), torch.from_numpy(yt).to(dev)
@@ -306,60 +461,85 @@ def main_path(torch, dev, card):
     counts = ops.launch_counts()
     # ---- end of the counted run
 
+    n_batches = -(-len(inp) // batch) + -(-len(inp_t) // batch)
+    expect = {k: f(cfg) * n_batches for k, f in PATHS[name].items()}
+    plain = {k: v for k, v in counts.items() if k.startswith("plain_on")}
     comm = res.info["comm_bytes"]
     payload = sum(len(m.payload) for m in res.messages)
-    emit({"phase": "main_path", "card": card, "features_s": t_feat,
-          **res.info["phase_s"], "centralized_s": t_central,
+    emit({"phase": "main_path", "model": cfg.name, "card": card,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "seq_len": int(inp.shape[1]), "batch": batch,
+          "n_batches": n_batches, "features_s": t_feat,
+          "phase_s": res.info["phase_s"], "centralized_s": t_central,
           "n_train": int(feats.shape[0]), "n_test": int(feats_t.shape[0]),
           "n_clients": len(clients), "comm_bytes": comm,
           "payload_bytes": payload, "acc": acc, "acc_centralized": acc_c,
           "heldout_loglik_mean": sum(heldout) / len(heldout),
-          "launches": counts})
+          "launches": {k: v for k, v in counts.items()
+                       if v and not k.startswith("plain_on")},
+          "plain_on_cuda": sum(plain.values())})
     if not (torch.isfinite(feats).all() and torch.isfinite(feats_t).all()
             and feats.shape == (len(y), cfg.d_model)):
-        raise AssertionError(f"features are not finite ({len(y)}, "
-                             f"{cfg.d_model})")
+        raise AssertionError(f"{name}: features are not finite "
+                             f"({len(y)}, {cfg.d_model})")
     if comm != payload:
-        raise AssertionError(f"comm_bytes {comm} != Σ len(payload) "
+        raise AssertionError(f"{name}: comm_bytes {comm} != Σ len(payload) "
                              f"{payload}")
     if not acc > acc_c - 0.08:                 # tests/test_system.py:70
-        raise AssertionError(f"FedPFT acc {acc} not > centralized "
+        raise AssertionError(f"{name}: FedPFT acc {acc} not > centralized "
                              f"{acc_c} − 0.08")
+    if not acc_c > 0.5:        # the full-depth features carry the classes
+        raise AssertionError(f"{name}: centralized acc {acc_c} ≤ 0.5 on 10 "
+                             "classes: the features lost the class signal")
     if not all(math.isfinite(v) for v in heldout):
-        raise AssertionError("non-finite held-out log-likelihood")
-    for name in ("estep_fused", "estep", "flash_attention"):
-        if counts[name] < 1:
-            raise AssertionError(f"the main path never launched {name}")
-    plain = {k: v for k, v in counts.items() if k.startswith("plain_on")}
+        raise AssertionError(f"{name}: non-finite held-out log-likelihood")
+    for k in ("estep_fused", "estep"):
+        if counts[k] < 1:
+            raise AssertionError(f"{name}: the main path never launched {k}")
+    for k, n in expect.items():
+        if counts[k] != n:
+            raise AssertionError(f"{name}: {counts[k]} {k} launches, not "
+                                 f"{n}")
     if any(plain.values()):
-        raise AssertionError(f"plain versions ran on CUDA tensors: {plain}")
+        raise AssertionError(f"{name}: plain versions ran on CUDA tensors: "
+                             f"{plain}")
 
-    # where the time goes: one features batch, one client, the server
-    g2 = torch.Generator(device=dev)
-    g2.manual_seed(1)
-    f0, y0 = clients[0]
-    for name, fn in (
-            ("features_batch_256", lambda: M.features(
-                cfg, params, {"frames": fr[:256]})),
+    # where the time goes: one features batch (and, for the encoder's
+    # round, one client and the server)
+    parts = [(f"features_batch_{batch}", lambda: M.features(
+        cfg, params, {key: inp[:batch]}))]
+    if cfg.family == "encoder":
+        g2 = torch.Generator(device=dev)
+        g2.manual_seed(1)
+        f0, y0 = clients[0]
+        parts += [
             ("client_fit_and_encode", lambda: sess.encode(
                 *sess.client_summary(f0, y0, 0, generator=g2, device=dev))),
             ("server_head", lambda: sess.server_aggregate(
-                res.messages, generator=g2, device=dev))):
-        emit({"phase": "profile", "part": name, "card": card,
-              **device_profile(torch, fn)})
+                res.messages, generator=g2, device=dev))]
+    for part, fn in parts:
+        emit({"phase": "profile", "model": cfg.name, "part": part,
+              "card": card, **device_profile(torch, fn)})
 
     # the card's features against the plain CPU path on a small input:
-    # the same weights cut to two layers, two samples
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    # the same weights cut to two layers (for the hybrid, two Mamba2
+    # layers each followed by the shared block), two samples
+    cut = {"n_layers": 2}
+    if cfg.family == "hybrid":
+        cut["attn_every"] = 1
+    cfg2 = dataclasses.replace(cfg, **cut)
     p2 = {k: v for k, v in params.items() if k != "blocks"}
     p2["blocks"] = {k: v[:2] for k, v in params["blocks"].items()}
-    p2_cpu = {k: v.cpu() for k, v in p2.items() if k != "blocks"}
-    p2_cpu["blocks"] = {k: v.cpu() for k, v in p2["blocks"].items()}
-    small = {"frames": frt[:2]}
+    small = {key: inp_t[:2]}
     on_card = M.features(cfg2, p2, small)
-    on_cpu = M.features(cfg2, p2_cpu, small, device="cpu")
-    check_close(torch, "features (2 layers, card vs CPU plain path)",
-                on_card.cpu(), on_cpu, ATTN_TOL_BF16, n=2)
+    t0 = time.perf_counter()
+    on_cpu = M.features(cfg2, to_cpu(p2), small, device="cpu")
+    check_close(torch, f"features of {name} (2 layers, card vs CPU plain "
+                "path)", on_card.cpu(), on_cpu, ATTN_TOL_BF16, n=2,
+                **cut, cpu_s=time.perf_counter() - t0)
+    del params, p2, feats, feats_t, clients, res, sess
+    gc.collect()
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -383,14 +563,15 @@ def main() -> int:
           "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    reports = _build.build(["gmm_estep.cu", "flash_attention.cu"])
+    reports = _build.build(["gmm_estep.cu", "flash_attention.cu", "wkv6.cu",
+                            "ssd.cu"])
     emit({"phase": "build", "s": time.perf_counter() - t0,
           "ptxas": {s: [ln.strip() for ln in r.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for s, r in reports.items()}})
 
     kres = kernel_phase(torch, dev, card)
-    counts = main_path(torch, dev, card)
+    counts = {name: main_path(torch, dev, card, name) for name in PATHS}
 
     sources = {"estep_fused": ("src/repro_torch/kernels/csrc/gmm_estep.cu",
                                "src/repro/kernels/gmm_estep.py:177"),
@@ -398,15 +579,27 @@ def main() -> int:
                          "src/repro/kernels/gmm_estep.py:171"),
                "flash_attention": (
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
-                   "src/repro/kernels/flash_attention.py:127")}
-    emit({"card": card, "kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "max_abs_err": kres[name]["max_abs_err"],
-         "ms": kres[name]["ms"], "plain_ms": kres[name]["plain_ms"],
-         "bound_ms": kres[name]["bound_ms"],
-         "bound_by": kres[name]["bound_by"],
-         "library_ms": kres[name]["library_ms"]}
-        for name, (src, rep) in sources.items()]})
+                   "src/repro/kernels/flash_attention.py:127"),
+               "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
+                        "src/repro/kernels/wkv6.py:96"),
+               "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
+                       "src/repro/kernels/ssd.py:91")}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    kernels = []
+    for name, (src, rep) in sources.items():
+        by_path = {p: c[name] for p, c in counts.items() if c[name]}
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": rep, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 **{k: kres[name][k] for k in keys}}
+        if name == "flash_attention":          # zamba2-7b's causal D = 112
+            entry["by_shape"] = [
+                {"shape": kres[k]["shape"], "causal": kres[k]["causal"],
+                 **{kk: kres[k][kk] for kk in keys}}
+                for k in ("flash_attention", "flash_attention_d112")]
+        kernels.append(entry)
+    emit({"card": card, "kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,14 +1,17 @@
-"""Architecture configs of the port: the encoder family of the main path.
+"""Architecture configs of the port: the backbones of the main path.
 
 The paper's own feature extractors (ResNet-50 / ViT-B / CLIP ViT-B/32) are
-stood in by a small encoder config (DESIGN.md §6); ``hubert-xlarge`` is
-the full-width encoder the port is driven at on the card.  The other
-families of ``repro/configs`` wait for their slices (ROADMAP).
+stood in by a small encoder config (DESIGN.md §6).  ``hubert-xlarge``
+(encoder), ``rwkv6-3b`` (ssm) and ``zamba2-7b`` (hybrid) are the
+full-width backbones the port is driven at on the card.  The dense / moe /
+vlm configs of ``repro/configs`` wait for their slice (ROADMAP).
 """
 from repro_torch.configs.hubert_xlarge import CONFIG as _hubert
+from repro_torch.configs.rwkv6_3b import CONFIG as _rwkv
+from repro_torch.configs.zamba2_7b import CONFIG as _zamba
 from repro_torch.models.config import ModelConfig
 
-ARCHS: dict[str, ModelConfig] = {c.name: c for c in [_hubert]}
+ARCHS: dict[str, ModelConfig] = {c.name: c for c in [_rwkv, _zamba, _hubert]}
 
 FOUNDATION_STANDIN = ModelConfig(
     name="foundation-standin",

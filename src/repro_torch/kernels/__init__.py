@@ -2,6 +2,8 @@
 
   gmm_estep        diag/spher GMM E-step (+ row logsumexp), f32
   flash_attention  online-softmax attention: causal, window, prefix, GQA
+  wkv6             RWKV6 recurrence with per-channel decay (rwkv6-3b)
+  ssd              Mamba2 SSD recurrence with scalar decay (zamba2-7b)
 
 ``ops`` dispatches by tensor device; ``ref`` holds the plain versions that
 define what each kernel computes.  Kernels build at first use (``_build``).

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, under ``build/kernels/`` at the
-root of the checkout, named by a hash of its source and flags, so a
-changed source rebuilds and an unchanged one loads.  Nothing here runs at
+root of the checkout, named by a hash of its source, the shared ``.cuh``
+headers and the flags, so a changed source rebuilds and an unchanged one
+loads.  Nothing here runs at
 import time: the CPU tests import every module and have no ``nvcc``.  A
 failed build raises; there is no fallback to the plain version.
 """
@@ -36,6 +37,8 @@ def _nvcc() -> str:
 
 def _target(source: str) -> Path:
     h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 

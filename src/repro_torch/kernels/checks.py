@@ -1,0 +1,89 @@
+"""Check cases of the recurrent kernels ``wkv6`` and ``ssd``.
+
+Shared by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``, which hold the
+CUDA kernels against their plain versions on a card, and (the shapes) by
+``tests/test_torch_recurrent.py``, which holds the plain versions against
+the JAX package: the check shapes, inputs drawn from a ``torch.Generator``,
+and each recurrence one step at a time, as the CUDA kernels run it.  A
+check runs the step recurrence in float64 as the exact answer.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+# (B, H, T, Dh, chunk): tests/test_wkv6_kernel.py's shapes, then two with
+# T % chunk != 0 (the plain version then takes one chunk of T)
+WKV6_SHAPES = [(1, 2, 32, 16, 16), (2, 3, 64, 32, 16), (1, 1, 48, 64, 8),
+               (2, 2, 128, 64, 32), (1, 4, 16, 8, 16),
+               (1, 2, 40, 16, 16), (2, 1, 72, 32, 32)]
+# (Bt, H, T, N, P, chunk): tests/test_ssd_kernel.py's shapes, then likewise
+SSD_SHAPES = [(1, 2, 64, 8, 16, 32), (2, 3, 128, 16, 32, 64),
+              (1, 1, 32, 4, 8, 16), (2, 1, 96, 64, 64, 32),
+              (1, 2, 40, 8, 16, 16), (2, 2, 200, 16, 32, 64)]
+# the paths' head sizes at a T that no chunk divides, in f32 against the
+# float64 step recurrence (the plain version's one chunk of 200 f32 steps
+# rounds past wkv6's 1e-4 on outputs near zero)
+WKV6_LONG = (2, 2, 200, 64, 64)
+SSD_LONG = (2, 2, 200, 64, 64, 256)
+
+
+def wkv6_inputs(g: torch.Generator, dev, B, H, T, Dh, dtype=torch.float32,
+                s0_scale=1.0, model_like=False):
+    """(r, k, v, lw, u, s0): r, k, v in ``dtype``; lw ≤ 0, u, s0 in f32.
+    ``model_like`` lays r, k, v, lw out as the RWKV block passes them
+    ((B, T, H, Dh) transposed) with lw = −exp(w0 + δ), w0 = −0.6, clamped
+    to [−8, 0]."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+    if model_like:
+        r, k, v = (rnd(B, T, H, Dh).to(dtype).transpose(1, 2)
+                   for _ in range(3))
+        lw = (-torch.exp(-0.6 + 0.3 * rnd(B, T, H, Dh))).clamp(-8.0, 0.0) \
+            .transpose(1, 2)
+    else:
+        r, k, v = (rnd(B, H, T, Dh).to(dtype) for _ in range(3))
+        lw = -F.softplus(rnd(B, H, T, Dh))
+    return r, k, v, lw, 0.5 * rnd(H, Dh), s0_scale * rnd(B, H, Dh, Dh)
+
+
+def ssd_inputs(g: torch.Generator, dev, Bt, H, T, N, P, dtype=torch.float32,
+               s0_scale=1.0, model_like=False):
+    """(x, a_log, B, C, s0): x, B, C in ``dtype``; a_log ≤ 0 and s0 in
+    f32.  ``model_like`` lays x and a_log out as the Mamba2 block passes
+    them ((Bt, T, H, ·) transposed) with a_log = Δ·A for Δ in [1e-3, 0.1]
+    and A = −1 (A_log = 0)."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+    if model_like:
+        x = rnd(Bt, T, H, P).to(dtype).transpose(1, 2)
+        a = -(1e-3 + 0.099 * torch.rand(Bt, T, H, generator=g, device=dev))
+        a = a.transpose(1, 2)
+    else:
+        x = rnd(Bt, H, T, P).to(dtype)
+        a = -0.2 * F.softplus(rnd(Bt, H, T))
+    Bm, Cm = (rnd(Bt, T, N).to(dtype) for _ in range(2))
+    return x, a, Bm, Cm, s0_scale * rnd(Bt, H, N, P)
+
+
+def wkv6_steps(r, k, v, lw, u, s0):
+    """The WKV6 recurrence one step at a time, in the inputs' dtype."""
+    S = s0.clone()
+    outs = []
+    for t in range(r.shape[2]):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+        outs.append(torch.einsum("bhd,bhde->bhe", r[:, :, t],
+                                 S + u[None, :, :, None] * kv))
+        S = torch.exp(lw[:, :, t])[..., None] * S + kv
+    return torch.stack(outs, dim=2), S
+
+
+def ssd_steps(x, a_log, B, C, s0):
+    """The SSD recurrence one step at a time, in the inputs' dtype."""
+    S = s0.clone()
+    ys = []
+    for t in range(x.shape[2]):
+        S = torch.exp(a_log[:, :, t])[..., None, None] * S \
+            + B[:, None, t, :, None] * x[:, :, t, None, :]
+        ys.append(torch.einsum("bn,bhnp->bhp", C[:, t], S))
+    return torch.stack(ys, dim=2), S

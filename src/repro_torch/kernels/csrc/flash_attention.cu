@@ -31,6 +31,9 @@
 //   query row: each scores 16 of the tile's 64 keys with the row's query
 //   in registers and owns D/4 of the output columns.
 //
+// Head dims: 16, 32, 64, 80 (hubert-xlarge), 112 (zamba2-7b's shared causal
+// block: seven k-steps of 16 and fourteen n-tiles of 8) and 128.
+//
 // Layout: q, k, v and o are (B, heads, S, D) views with any strides whose
 // last dimension is contiguous, so the encoder passes (B, S, H, D) tensors
 // transposed in place.
@@ -404,7 +407,8 @@ int launch(int dtype, const Args& a, cudaStream_t s) {
 // q (B, H, Sq, D), k and v (B, Hkv, Sk, D), o (B, H, Sq, D): element
 // (b, h, i, c) of each lies at base + b*st[0] + h*st[1] + i*st[2] + c, the
 // strides (in elements) given for q, k, v, o in that order in st[12].
-// dtype 0 is f32, 1 is bf16. D is one of 16, 32, 64, 80, 128; H % Hkv == 0.
+// dtype 0 is f32, 1 is bf16. D is one of 16, 32, 64, 80, 112, 128;
+// H % Hkv == 0.
 // Returns cudaGetLastError() (cudaErrorInvalidValue for another D or dtype).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o,
@@ -423,6 +427,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 32: return launch<32>(dtype, a, s);
     case 64: return launch<64>(dtype, a, s);
     case 80: return launch<80>(dtype, a, s);
+    case 112: return launch<112>(dtype, a, s);
     case 128: return launch<128>(dtype, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,0 +1,44 @@
+// Device helpers shared by the sequential-recurrence kernels (wkv6.cu,
+// ssd.cu). Both hold an f32 state in registers, one column per group of
+// four adjacent lanes, and stage each tile of steps in shared memory.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace recurrence {
+
+// Element strides of a (B, H, T, ...) view with a contiguous last dim.
+struct Strides {
+  long long b, h, t;
+};
+
+// The strides of `n` tensors, packed as st[3 * i .. 3 * i + 2].
+template <int n>
+inline void unpack(const long long* st, Strides (&s)[n]) {
+  for (int i = 0; i < n; ++i)
+    s[i] = Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Sum over the four adjacent lanes that share one state column.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+}  // namespace recurrence

@@ -20,7 +20,7 @@ from repro_torch.kernels import _build
 
 _SOURCE = "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128)
 _MAX_GRID_Y = 65535
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}

@@ -11,9 +11,13 @@ from typing import Dict
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gmm_estep as _ge
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd as _ssd
+from repro_torch.kernels import wkv6 as _wkv6
 
-__all__ = ["gmm_estep", "gmm_estep_fused", "attention", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["gmm_estep", "gmm_estep_fused", "attention", "wkv6", "ssd",
+           "launch_counts", "reset_launch_counts"]
+
+_KERNEL_COUNTS = (_ge.LAUNCHES, _fa.LAUNCHES, _wkv6.LAUNCHES, _ssd.LAUNCHES)
 
 
 def gmm_estep(x, mu, var, pi):
@@ -43,15 +47,29 @@ def attention(q, k, v, *, causal=True, window=0, prefix=0):
                              prefix=prefix)
 
 
+def wkv6(r, k, v, lw, u, s0, chunk: int = 16):
+    """(B, H, T, Dh) WKV6 recurrence → (out, final state)."""
+    if r.is_cuda:
+        return _wkv6.wkv6(r, k, v, lw, u, s0, chunk=chunk)
+    return ref.wkv6_ref(r, k, v, lw, u, s0, chunk=chunk)
+
+
+def ssd(x, a_log, B, C, s0, chunk: int = 64):
+    """(Bt, H, T, P) Mamba2 SSD recurrence → (y, final state)."""
+    if x.is_cuda:
+        return _ssd.ssd(x, a_log, B, C, s0, chunk=chunk)
+    return ref.ssd_ref(x, a_log, B, C, s0, chunk=chunk)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, and plain versions run on CUDA tensors."""
-    counts = {**_ge.LAUNCHES, **_fa.LAUNCHES}
+    counts = {k: v for table in _KERNEL_COUNTS for k, v in table.items()}
     counts.update({f"plain_on_cuda.{k}": v
                    for k, v in ref.CUDA_CALLS.items()})
     return counts
 
 
 def reset_launch_counts() -> None:
-    for table in (_ge.LAUNCHES, _fa.LAUNCHES, ref.CUDA_CALLS):
+    for table in (*_KERNEL_COUNTS, ref.CUDA_CALLS):
         for name in table:
             table[name] = 0

@@ -14,7 +14,8 @@ import torch
 
 _LOG2PI = math.log(2.0 * math.pi)
 
-CUDA_CALLS: Dict[str, int] = {"estep": 0, "estep_fused": 0, "attention": 0}
+CUDA_CALLS: Dict[str, int] = {"estep": 0, "estep_fused": 0, "attention": 0,
+                               "wkv6": 0, "ssd": 0}
 
 
 def _note(name: str, t: torch.Tensor) -> None:
@@ -117,3 +118,86 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return o.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def _chunk_len(T: int, chunk: int) -> int:
+    """The reference's chunk rule: ``min(chunk, T)``, or T when that does
+    not divide T."""
+    C = min(chunk, T)
+    return T if T % C else C
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             lw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+             chunk: int = 16):
+    """Chunked WKV6 (port of ``repro/models/rwkv.py::wkv6_chunked``).
+
+    r, k, v, lw: (B, H, T, Dh), lw ≤ 0; u: (H, Dh); s0: (B, H, Dh, Dh).
+    ``out_t = r_tᵀ(S_{t−1} + diag(u) k_t v_tᵀ)``,
+    ``S_t = diag(e^{lw_t}) S_{t−1} + k_t v_tᵀ``.  Within a chunk every
+    pairwise decay is an exponent ≤ 0.  Returns (out in r's dtype,
+    final state f32).
+    """
+    _note("wkv6", r)
+    B, H, T, Dh = r.shape
+    C = _chunk_len(T, chunk)
+    uf = u.float()
+    tri = torch.tril(torch.ones((C, C), dtype=torch.bool, device=r.device),
+                     diagonal=-1)                               # s < t
+    S = s0.float()
+    outs = []
+    for c0 in range(0, T, C):
+        rc, kc, vc, lwc = (a[:, :, c0:c0 + C].float() for a in (r, k, v, lw))
+        cw = torch.cumsum(lwc, dim=2)                           # Σ_{j≤t} lw
+        cw_prev = cw - lwc
+        expo = cw_prev[:, :, :, None, :] - cw[:, :, None, :, :]  # (B,H,C,C,Dh)
+        P = torch.where(tri[None, None, :, :, None], torch.exp(expo),
+                        torch.zeros((), device=r.device))
+        A = torch.einsum("bhtd,bhsd,bhtsd->bhts", rc, kc, P)
+        diag = torch.einsum("bhtd,bhtd,hd->bht", rc, kc, uf)
+        out = torch.einsum("bhts,bhse->bhte", A, vc) + diag[..., None] * vc
+        out = out + torch.einsum("bhtd,bhde->bhte", rc * torch.exp(cw_prev),
+                                 S)
+        last = cw[:, :, -1:, :]
+        kdec = kc * torch.exp(last - cw)
+        S = torch.exp(last[:, :, 0, :])[..., None] * S \
+            + torch.einsum("bhsd,bhse->bhde", kdec, vc)
+        outs.append(out)
+    return torch.cat(outs, dim=2).to(r.dtype), S
+
+
+def ssd_ref(x: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
+            C: torch.Tensor, s0: torch.Tensor, chunk: int = 64):
+    """Chunked Mamba2 SSD (port of ``repro/models/mamba2.py::ssd_chunked``).
+
+    x: (Bt, H, T, P); a_log: (Bt, H, T) log decay ≤ 0; B, C: (Bt, T, N)
+    shared over heads; s0: (Bt, H, N, P).  ``S_t = e^{a_t} S_{t−1} +
+    B_t x_tᵀ``, ``y_t = C_tᵀ S_t``.  Returns (y in x's dtype, final state
+    f32).
+    """
+    _note("ssd", x)
+    Bt, H, T, P = x.shape
+    Cn = _chunk_len(T, chunk)
+    tri = torch.tril(torch.ones((Cn, Cn), dtype=torch.bool,
+                                device=x.device))               # s ≤ t
+    S = s0.float()
+    ys = []
+    for c0 in range(0, T, Cn):
+        xc = x[:, :, c0:c0 + Cn].float()
+        alc = a_log[:, :, c0:c0 + Cn].float()
+        Bc = B[:, c0:c0 + Cn].float()
+        Cc = C[:, c0:c0 + Cn].float()
+        cw = torch.cumsum(alc, dim=-1)                          # Σ_{j≤t} a
+        expo = cw[..., :, None] - cw[..., None, :]              # (Bt,H,C,C)
+        G = torch.where(tri[None, None], torch.exp(expo),
+                        torch.zeros((), device=x.device))
+        CB = torch.einsum("btn,bsn->bts", Cc, Bc)
+        y = torch.einsum("bhts,bhsp->bhtp", G * CB[:, None], xc)
+        Cdec = Cc[:, None] * torch.exp(cw)[..., None]           # (Bt,H,C,N)
+        y = y + torch.einsum("bhtn,bhnp->bhtp", Cdec, S)
+        last = cw[..., -1:]                                     # (Bt,H,1)
+        Bdec = Bc[:, None] * torch.exp(last[..., None] - cw[..., None])
+        S = torch.exp(last)[..., None] * S \
+            + torch.einsum("bhsn,bhsp->bhnp", Bdec, xc)
+        ys.append(y)
+    return torch.cat(ys, dim=2).to(x.dtype), S

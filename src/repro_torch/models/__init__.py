@@ -1,1 +1,2 @@
-"""Foundation backbone: the encoder family of ``repro/models``."""
+"""Foundation backbones: the encoder, ssm (RWKV6) and hybrid (Mamba2 +
+shared attention) families of ``repro/models``."""

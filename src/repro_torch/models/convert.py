@@ -3,8 +3,10 @@
 ``params_from_numpy(cfg, tree)`` takes the reference's ``init_params``
 pytree with every leaf as a numpy array (layer stacks ``(L, …)``,
 ``x @ W`` orientation — the port's own layout) and returns the port's
-parameter dict in ``cfg.dtype``, so both packages compute the same
-features from the same weights.
+parameter dict, so both packages compute the same features from the same
+weights.  Every leaf takes ``cfg.dtype`` except those the reference holds
+in f32 whatever the config says (RWKV6's ``w0`` and ``u``, Mamba2's
+``A_log``, ``dt_bias`` and ``D``): casting them would change the result.
 """
 from __future__ import annotations
 
@@ -13,23 +15,25 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.models import mamba2, rwkv
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import _BLOCK_KEYS, _check_encoder, _dtype
+from repro_torch.models.model import _check_family, _dtype
 
-_TOP_KEYS = ("frame_proj", "mask_emb", "final_norm", "lm_head")
+F32_LEAVES = frozenset(rwkv.F32_LEAVES + mamba2.F32_LEAVES)
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
                       device: Optional[Union[str, torch.device]] = "cpu"
                       ) -> Dict[str, Any]:
-    _check_encoder(cfg)
+    _check_family(cfg)
     dt = _dtype(cfg)
 
-    def conv(a):
+    def conv(name, a):
+        if isinstance(a, dict):
+            return {k: conv(k, v) for k, v in a.items()}
         # via f32: bf16 leaves (ml_dtypes on the reference side) convert
         # exactly, and the port never needs to know that type
-        return torch.from_numpy(np.asarray(a, np.float32).copy()) \
-            .to(device=device, dtype=dt)
-    out = {k: conv(tree[k]) for k in _TOP_KEYS}
-    out["blocks"] = {k: conv(tree["blocks"][k]) for k in _BLOCK_KEYS}
-    return out
+        return torch.from_numpy(np.asarray(a, np.float32).copy()).to(
+            device=device,
+            dtype=torch.float32 if name in F32_LEAVES else dt)
+    return {k: conv(k, v) for k, v in tree.items()}

@@ -30,6 +30,16 @@ def dense_init(shape, dtype, generator: torch.Generator, device,
     return (z * scale).to(dtype)
 
 
+def dense_stack(n_layers: int, shape, dtype, generator: torch.Generator,
+                device, scale: Optional[float] = None) -> torch.Tensor:
+    """(n_layers, *shape) weights of ``dense_init``'s law, drawn one layer
+    at a time so that no f32 temporary exceeds one layer's matrix."""
+    out = torch.empty((n_layers,) + tuple(shape), dtype=dtype, device=device)
+    for layer in range(n_layers):
+        out[layer] = dense_init(tuple(shape), dtype, generator, device, scale)
+    return out
+
+
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
@@ -77,10 +87,13 @@ def attention(x: torch.Tensor, w, cfg: ModelConfig, *,
 
 
 def mlp(x: torch.Tensor, w, cfg: ModelConfig) -> torch.Tensor:
-    """The encoder's GELU MLP.  ``jax.nn.gelu`` defaults to the tanh
-    approximation, so this does too."""
-    if cfg.mlp_variant != "gelu":
+    """The encoder's GELU MLP and the hybrid shared block's SwiGLU MLP.
+    ``jax.nn.gelu`` defaults to the tanh approximation, so this does too."""
+    if cfg.mlp_variant not in ("swiglu", "gelu"):
         raise NotImplementedError(
             f"mlp_variant={cfg.mlp_variant!r} waits for its slice (ROADMAP, "
             "port queue: serving and decoder families)")
-    return F.gelu(x @ w["w_in"], approximate="tanh") @ w["w_out"]
+    h = x @ w["w_in"]
+    if cfg.mlp_variant == "swiglu":
+        return (F.silu(x @ w["w_gate"]) * h) @ w["w_out"]
+    return F.gelu(h, approximate="tanh") @ w["w_out"]

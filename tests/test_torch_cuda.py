@@ -8,7 +8,12 @@ installed (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
         tests/test_torch_cuda.py
 
 Tolerances: E-step 3e-4; attention 2e-3 in f32 and 5e-2 in bf16 (the
-reference's own kernel bounds, ``tests/test_kernels.py``).
+reference's own kernel bounds, ``tests/test_kernels.py``); wkv6 1e-4 and
+ssd 2e-4 in f32 (``tests/test_wkv6_kernel.py``, ``tests/test_ssd_kernel.py``),
+against the plain versions and, at the paths' head sizes and T = 200,
+against the float64 step recurrence; 1e-2 in bf16, where kernel and plain
+version each round one f32 result to bf16 (at most one bf16 step, 2^-8
+relative, apart).
 """
 import dataclasses
 
@@ -16,10 +21,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import FOUNDATION_STANDIN
+from repro_torch.configs import FOUNDATION_STANDIN, get_config
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import gmm_estep as GE
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import checks, ops, ref
+from repro_torch.kernels import ssd as SSD
+from repro_torch.kernels import wkv6 as WKV
 from repro_torch.models import model as M
 
 pytestmark = pytest.mark.cuda
@@ -36,6 +43,7 @@ ATTN_CASES = [
     (1, 2, 2, 24, 24, 16, True, 5, 3),       # window + prefix
     (1, 2, 2, 200, 200, 128, False, 0, 0),   # several key tiles, ragged
     (2, 4, 2, 70, 150, 64, True, 0, 0),      # ragged queries and keys
+    (2, 4, 4, 200, 200, 112, True, 0, 0),    # causal D = 112 (zamba2-7b)
 ]
 
 
@@ -99,6 +107,84 @@ def test_rows_with_no_visible_key_are_zero(dev, dtype):
     k = torch.randn(1, 2, 4, 32, device=dev).to(dtype)
     out = FA.flash_attention(q, k, k, causal=True)
     assert float(out[:, :, :4].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B,H,T,Dh,chunk,dtype,tol", [
+    *(c + (torch.float32, 1e-4) for c in checks.WKV6_SHAPES),
+    (2, 2, 128, 64, 32, torch.bfloat16, 1e-2),
+    (2, 2, 200, 64, 64, torch.bfloat16, 1e-2),
+])
+def test_wkv6(dev, B, H, T, Dh, chunk, dtype, tol):
+    g = torch.Generator(device=dev)
+    g.manual_seed(T + Dh)
+    args = checks.wkv6_inputs(g, dev, B, H, T, Dh, dtype)
+    out, sf = WKV.wkv6(*args, chunk=chunk)
+    exp, sf_exp = ref.wkv6_ref(*args, chunk=chunk)
+    assert out.dtype == dtype and sf.dtype == torch.float32
+    torch.testing.assert_close(out, exp, rtol=tol, atol=tol)
+    torch.testing.assert_close(sf, sf_exp, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("Bt,H,T,N,P,chunk", checks.SSD_SHAPES)
+def test_ssd(dev, Bt, H, T, N, P, chunk, dtype, tol):
+    g = torch.Generator(device=dev)
+    g.manual_seed(T + N)
+    args = checks.ssd_inputs(g, dev, Bt, H, T, N, P, dtype)
+    y, sf = SSD.ssd(*args, chunk=chunk)
+    exp, sf_exp = ref.ssd_ref(*args, chunk=chunk)
+    assert y.dtype == dtype and sf.dtype == torch.float32
+    torch.testing.assert_close(y, exp, rtol=tol, atol=tol)
+    torch.testing.assert_close(sf, sf_exp, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name", ["wkv6", "ssd"])
+def test_long_f32_matches_the_float64_steps(dev, name):
+    """The paths' head sizes (Dh = 64; N = P = 64) at T = 200, which no
+    chunk divides, in f32 against the step recurrence in float64."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(200)
+    if name == "wkv6":
+        *shape, chunk = checks.WKV6_LONG
+        args = checks.wkv6_inputs(g, dev, *shape)
+        got = WKV.wkv6(*args, chunk=chunk)
+        exp = checks.wkv6_steps(*(a.double() for a in args))
+        tol = 1e-4
+    else:
+        *shape, chunk = checks.SSD_LONG
+        args = checks.ssd_inputs(g, dev, *shape)
+        got = SSD.ssd(*args, chunk=chunk)
+        exp = checks.ssd_steps(*(a.double() for a in args))
+        tol = 2e-4
+    for a, b in zip(got, exp):
+        torch.testing.assert_close(a.double(), b, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name,over", [("rwkv6-3b", {}),
+                                       ("zamba2-7b", {"n_layers": 5})])
+def test_backbone_features_on_card_match_the_cpu_path(dev, name, over):
+    """rwkv6-3b / zamba2-7b cut down through the wkv6 / ssd / flash
+    kernels on the card against the plain CPU path, same weights."""
+    cfg = get_config(name).reduced(**over)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = M.init_params(cfg, g, device=dev)
+    tokens = torch.randint(1, cfg.vocab_size, (3, 72), device=dev)
+    ops.reset_launch_counts()
+    on_card = M.features(cfg, params, {"tokens": tokens})
+    counts = ops.launch_counts()
+    if cfg.family == "ssm":
+        assert counts["wkv6"] == cfg.n_layers
+    else:
+        assert counts["ssd"] == cfg.n_layers
+        assert counts["flash_attention"] == cfg.n_layers // cfg.attn_every
+    assert not any(v for k, v in counts.items() if k.startswith("plain"))
+    cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()}
+               if isinstance(v, dict) else v.cpu())
+           for k, v in params.items()}
+    on_cpu = M.features(cfg, cpu, {"tokens": tokens.cpu()}, device="cpu")
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=5e-2, atol=5e-2)
 
 
 def test_features_on_card_match_the_cpu_path(dev):

@@ -88,6 +88,7 @@ ATTN_CASES = [
     (1, 2, 2, 24, 24, 80, False, 0, 0),      # bidirectional, D = 80
     (1, 4, 4, 24, 24, 16, True, 0, 5),       # bidirectional prefix
     (1, 2, 2, 24, 24, 16, True, 5, 3),       # window + prefix
+    (1, 2, 2, 24, 24, 112, True, 0, 0),      # causal, D = 112 (zamba2-7b)
 ]
 
 
