@@ -42,7 +42,6 @@ SSD_TOL_F32 = 2e-4         # tests/test_ssd_kernel.py
 # bf16 recurrences: kernel and plain version each round one f32 result to
 # bf16, so they are at most one bf16 step (2^-8 relative) apart
 REC_TOL_BF16 = 1e-2
-N_TIMED = 25
 
 
 def emit(obj) -> None:
@@ -58,20 +57,18 @@ def card_line() -> str:
 
 
 def time_ms(torch, fn) -> float:
-    """Median over N_TIMED launches, each between two CUDA events."""
-    for _ in range(5):
-        fn()
-    times = []
-    for _ in range(N_TIMED):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
+    """The kernel_time lines' ``ms``: the median over 25 calls of an event
+    pair around one call, the card idle before it, so the host's work to
+    launch the call counts (``compare.single_call_ms``)."""
+    from repro_torch.kernels.compare import single_call_ms
+    return single_call_ms(torch, fn)
+
+
+def device_ms(torch, fn) -> float:
+    """The card's time per call, 25 calls back to back (the host's launch
+    work overlapped): ``compare.device_ms``."""
+    from repro_torch.kernels.compare import device_ms as timer
+    return timer(torch, fn)
 
 
 def device_profile(torch, fn) -> dict:
@@ -159,6 +156,8 @@ def kernel_phase(torch, dev, card):
             res["estep_fused"] = dict(
                 max_abs_err=err,
                 ms=time_ms(torch, lambda: GE.estep_fused(x, mu, var, pi)),
+                device_ms=device_ms(torch, lambda: GE.estep_fused(
+                    x, mu, var, pi)),
                 plain_ms=time_ms(torch, lambda: ref.estep_fused_ref(
                     x, mu, var, pi)),
                 library_ms=None, flops=flops, bytes=nbytes,
@@ -172,6 +171,7 @@ def kernel_phase(torch, dev, card):
     res["estep"] = dict(
         max_abs_err=err,
         ms=time_ms(torch, lambda: GE.estep(x, mu, var, pi)),
+        device_ms=device_ms(torch, lambda: GE.estep(x, mu, var, pi)),
         plain_ms=time_ms(torch, lambda: ref.estep_ref(x, mu, var, pi)),
         library_ms=None, flops=4.0 * 1000 * 10 * 1280,
         bytes=4.0 * (1000 * 1280 + 2 * 10 * 1280 + 10 + 1000 * 10),
@@ -196,6 +196,16 @@ def kernel_phase(torch, dev, card):
         # zamba2-7b's shared causal block, then ragged in f32
         (64, 32, 32, 512, 512, 112, True, 0, 0, torch.bfloat16),
         (2, 4, 4, 200, 200, 112, True, 0, 0, torch.float32),
+        # key tiles skipped: causal, on both sides of a window, below a
+        # prefix, queries at the tail of 515 keys
+        *((B, H, Hkv, Sq, Sk, D, c, w, p, dt)
+          for dt in (torch.bfloat16, torch.float32)
+          for B, H, Hkv, Sq, Sk, D, c, w, p in (
+              (1, 4, 2, 512, 512, 112, True, 0, 0),
+              (1, 2, 2, 512, 512, 64, True, 100, 0),
+              (1, 2, 2, 512, 512, 64, True, 0, 130),
+              (1, 4, 2, 70, 515, 112, True, 0, 0),
+              (2, 2, 2, 200, 200, 80, False, 0, 0))),
     ]
     for B, H, Hkv, Sq, Sk, D, causal, window, prefix, dt in cases:
         q = torch.randn(B, H, Sq, D, generator=g, device=dev).to(dt)
@@ -214,6 +224,19 @@ def kernel_phase(torch, dev, card):
                    (B, H, Sq, D, causal))
         if dt != torch.bfloat16 or key is None:
             continue
+        # key tiles the bf16 kernel visits against the full sweep, per
+        # block of queries and per warp's rows (a quarter of a block)
+        tiles = {}
+        for unit, rows in (("block", FA.BQ), ("warp", FA.WARP_ROWS)):
+            nq = -(-Sq // rows)
+            tiles[f"{unit}_rows"] = rows
+            tiles[f"{unit}_tiles_visited"] = B * H * sum(
+                n_pre + hi - lo for n_pre, lo, hi in (
+                    FA.key_tile_range(i, Sq, Sk, causal, window, prefix,
+                                      rows) for i in range(nq)))
+            tiles[f"{unit}_tiles_full_sweep"] = B * H * nq * -(-Sk // FA.BKV)
+        emit({"phase": "flash_tiles", "kernel": key, "B": B, "H": H,
+              "Sq": Sq, "Sk": Sk, "D": D, "causal": causal, **tiles})
         sdpa = torch.nn.functional.scaled_dot_product_attention
         # key pairs a causal query row needs: what this run's data needs
         pairs = Sq * (Sq + 1) / 2 if causal else Sq * Sk
@@ -224,6 +247,10 @@ def kernel_phase(torch, dev, card):
                                                               **kw)),
             library_ms=time_ms(torch, lambda: sdpa(q, k, v,
                                                    is_causal=causal)),
+            device_ms=device_ms(torch, lambda: FA.flash_attention(
+                q, k, v, **kw)),
+            library_device_ms=device_ms(torch, lambda: sdpa(
+                q, k, v, is_causal=causal)),
             flops=4.0 * B * H * pairs * D,
             bytes=2.0 * (2 * B * H * Sq * D + 2 * B * Hkv * Sk * D),
             peak=BF16_FLOPS)
@@ -246,9 +273,10 @@ def kernel_phase(torch, dev, card):
         r["bound_by"] = ("operations" if r["flops"] / r["peak"]
                          >= r["bytes"] / HBM_BYTES_S else "bytes")
         if "design_flops" in r:
-            r["design_bound_ms"] = 1e3 * r["design_flops"] / F32_FLOPS
+            r["design_bound_ms"] = 1e3 * r["design_flops"] / r["design_peak"]
         emit({"phase": "kernel_time", "kernel": name, "card": card,
-              **{k: r[k] for k in ("ms", "plain_ms", "library_ms",
+              **{k: r[k] for k in ("ms", "device_ms", "plain_ms",
+                                   "library_ms", "library_device_ms",
                                    "bound_ms", "bound_by", "design_bound_ms")
                  if k in r}})
     return res
@@ -261,7 +289,8 @@ WKV6_BF16 = [("main", 64, 40, 512, 64, 64, 0.0),
              ("T=200", 4, 40, 200, 64, 64, 1.0)]
 # tag, Bt, H, T, N, P, chunk, s0 scale
 SSD_BF16 = [("main", 64, 112, 512, 64, 64, 256, 0.0),
-            ("T=200", 4, 112, 200, 64, 64, 256, 1.0)]
+            ("T=200", 4, 112, 200, 64, 64, 256, 1.0),
+            ("T=65", 4, 112, 65, 64, 64, 256, 1.0)]
 
 
 def recurrent_checks(torch, dev, g, res):
@@ -306,17 +335,24 @@ def recurrent_checks(torch, dev, g, res):
                 res[name] = dict(
                     max_abs_err=err,
                     ms=time_ms(torch, lambda: fn(*args, chunk=chunk)),
+                    device_ms=device_ms(torch, lambda: fn(*args,
+                                                          chunk=chunk)),
                     plain_ms=time_ms(torch, lambda: plain(*args,
                                                           chunk=chunk)),
                     library_ms=None,
                     **recurrent_work(name, *dims_, chunk=chunk))
 
 
+# the bf16 ssd kernel's own chunk (csrc/ssd.cu), whatever the model's
+SSD_KERNEL_CHUNK = 64
+
+
 def recurrent_work(name, B, H, T, *dims, chunk):
     """The bytes that wkv6 / ssd must move and the operations of their
     chunked form (chunk C) on the bf16 tensor cores: the function's bound.
-    ``design_flops``: the f32 operations that the sequential CUDA-core
-    kernel executes, the bound of this design."""
+    ``design_flops`` over ``design_peak``: the bound of the design that
+    runs — for wkv6 the f32 operations of the sequential CUDA-core kernel,
+    for ssd the tensor-core products of the chunked bf16 kernel."""
     if name == "wkv6":
         (Dh,) = dims
         n = B * H * T * Dh
@@ -328,9 +364,16 @@ def recurrent_work(name, B, H, T, *dims, chunk):
             + 2 * 4.0 * B * H * Dh * Dh,
             peak=BF16_FLOPS,
             # per step and state element: k·v, u·kv + S, r·(…), w·S + kv
-            design_flops=7.0 * n * Dh)
+            design_flops=7.0 * n * Dh, design_peak=F32_FLOPS)
     N, P = dims
     n = B * H * T * P
+    # the kernel's products per chunk of L and (b, h), N and P padded to
+    # 16 and 64: C Bᵀ and M x over the s ≤ t blocks of 16 (10 of 16 when
+    # L = 64), M x, C S and the state update twice (hi + lo halves)
+    L, Np, Pp = SSD_KERNEL_CHUNK, max(16, N), 64
+    tri = (L // 16) * (L // 16 + 1) / 2 * 16 * 16
+    per_chunk = 2.0 * tri * Np + 2 * 2.0 * tri * Pp + 2 * 2.0 * L * Np * Pp \
+        + 2 * 2.0 * Pp * L * Np
     return dict(
         # C Bᵀ once per chunk for all heads; (L ⊙ C Bᵀ) x, C S, Bᵀ x per head
         flops=2.0 * B * T * chunk * N + B * H * T * (2.0 * chunk * P
@@ -339,8 +382,7 @@ def recurrent_work(name, B, H, T, *dims, chunk):
         bytes=2.0 * 2 * n + 4.0 * B * H * T + 2.0 * 2 * B * T * N
         + 2 * 4.0 * B * H * N * P,
         peak=BF16_FLOPS,
-        # per step and state element: e^a·S + B·x (3), C·S (2)
-        design_flops=5.0 * n * N)
+        design_flops=per_chunk * B * H * -(-T // L), design_peak=BF16_FLOPS)
 
 
 def frames_of(np, x, n_frames, frame_dim):
@@ -585,7 +627,7 @@ def main() -> int:
                "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
                        "src/repro/kernels/ssd.py:91")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms", "device_ms")
     kernels = []
     for name, (src, rep) in sources.items():
         by_path = {p: c[name] for p, c in counts.items() if c[name]}
@@ -596,7 +638,7 @@ def main() -> int:
         if name == "flash_attention":          # zamba2-7b's causal D = 112
             entry["by_shape"] = [
                 {"shape": kres[k]["shape"], "causal": kres[k]["causal"],
-                 **{kk: kres[k][kk] for kk in keys}}
+                 **{kk: kres[k][kk] for kk in (*keys, "library_device_ms")}}
                 for k in ("flash_attention", "flash_attention_d112")]
         kernels.append(entry)
     emit({"card": card, "kernels": kernels})

@@ -12,7 +12,7 @@ Takes CUDA tensors only; ``ops`` sends CPU tensors to ``ref.attention_ref``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -21,18 +21,76 @@ from repro_torch.kernels import _build
 _SOURCE = "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 112, 128)
-_MAX_GRID_Y = 65535
+BQ = BKV = 64                   # queries per block, keys per tile
+WARP_ROWS = 16                  # queries per warp of the bf16 kernel
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+_FN = None
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(_SOURCE)
-    fn = lib.flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+def key_tile_range(q_block: int, Sq: int, Sk: int, causal: bool,
+                   window: int, prefix: int,
+                   rows: int = BQ) -> Tuple[int, int, int]:
+    """The key tiles that the ``q_block``-th block of ``rows`` queries
+    visits: ``[0, n_pre)`` then ``[lo, hi)``, as ``(n_pre, lo, hi)`` with
+    ``n_pre ≤ lo ≤ hi``.
+
+    The block's rows sit at ``q_pos = i + Sk − Sq``.  Causal masking gives
+    the upper end (its last row's q_pos), ``window`` the lower end (its
+    first row's q_pos − window + 1), and ``prefix`` adds the tiles below
+    ``prefix`` back.  Every tile outside ``[0, n_pre) ∪ [lo, hi)`` holds
+    no key visible to any of the block's rows.  The bf16 kernel of
+    ``csrc/flash_attention.cu`` states the same arithmetic, once for a
+    block's ``BQ`` rows and once for each warp's ``WARP_ROWS``.
+    """
+    qf = q_block * rows + Sk - Sq
+    ql = min(Sq, (q_block + 1) * rows) - 1 + Sk - Sq
+    k_lo = max(0, qf - window + 1) if window > 0 else 0
+    k_hi = min(Sk - 1, ql) if causal else Sk - 1
+    p_end = -(-min(prefix, Sk) // BKV) if prefix > 0 else 0
+    lo, t_end = (k_lo // BKV, k_hi // BKV + 1) if k_hi >= k_lo else (0, 0)
+    return min(p_end, lo), lo, max(t_end, p_end)
+
+
+def tile_needs_mask(tile: int, q_block: int, Sq: int, Sk: int,
+                    causal: bool, window: int, prefix: int,
+                    rows: int = BQ) -> bool:
+    """Whether the kernel tests each (query, key) pair of ``tile`` for the
+    ``q_block``-th block of ``rows`` queries (the kernel asks it per
+    warp): False only when every pair of the tile is visible (a full tile
+    inside the prefix, or one that no mask boundary cuts)."""
+    k0 = tile * BKV
+    if k0 + BKV > Sk:
+        return True
+    if k0 + BKV <= prefix:
+        return False
+    qf = q_block * rows + Sk - Sq
+    ql = min(Sq, (q_block + 1) * rows) - 1 + Sk - Sq
+    return bool((causal and k0 + BKV - 1 > qf)
+                or (window > 0 and ql - k0 >= window))
+
+
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """The bf16 kernel copies rows in 16-byte pieces: the base pointer and
+    every batch, head and row stride must be a multiple of 16 bytes.
+    Another layout raises; it is never copied quietly."""
+    st = t.stride()
+    if t.data_ptr() % 16 or any(st[i] % 8 for i in range(3)
+                                if t.shape[i] > 1):
+        raise ValueError(f"flash_attention: {name} needs a 16-byte aligned "
+                         f"base and strides, got pointer {t.data_ptr():#x} "
+                         f"strides {st}")
+
+
+def _launch_fn():
+    global _FN
+    if _FN is None:
+        fn = _build.load(_SOURCE).flash_attention_launch
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -40,22 +98,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     prefix: int = 0) -> torch.Tensor:
     """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D) → (B, H, Sq, D) in q.dtype.
 
-    Any strides are taken as long as the last dimension is contiguous, so
-    (B, S, H, D) activations pass as ``.transpose(1, 2)`` views without a
-    copy.  The result is a (B, H, Sq, D) view of a (B, Sq, H, D) tensor,
-    which ``.transpose(1, 2)`` turns back into a contiguous one.
+    Any strides are taken as long as the last dimension is contiguous
+    (bf16: and the base and strides are 16-byte aligned), so (B, S, H, D)
+    activations pass as ``.transpose(1, 2)`` views without a copy.  The
+    result is a (B, H, Sq, D) view of a (B, Sq, H, D) tensor, which
+    ``.transpose(1, 2)`` turns back into a contiguous one.
     """
+    dev, dt = q.device, q.dtype
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != q.device:
+        if t.device != dev or not t.is_cuda:
             raise ValueError(f"flash_attention: {name} must be a CUDA tensor "
-                             f"on {q.device}, got {t.device}")
-        if t.dtype != q.dtype or t.dtype not in _DTYPES:
+                             f"on {dev}, got {t.device}")
+        if t.dtype != dt or dt not in _DTYPES:
             raise ValueError(f"flash_attention: q, k, v must share one of "
                              f"{list(_DTYPES)}, got {t.dtype}")
         if t.dim() != 4 or t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name} must be 4-D with a "
                              f"contiguous last dim, got {tuple(t.shape)} "
                              f"strides {t.stride()}")
+        if dt == torch.bfloat16:
+            _check_aligned(name, t)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     if k.shape != (B, Hkv, Sk, D) or v.shape != k.shape or Hkv == 0 \
@@ -65,18 +127,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "agree (need k == v shape and H % Hkv == 0)")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS}")
-    if min(B, H, Sq, Sk) < 1 or -(-Sq // 64) > _MAX_GRID_Y:
-        raise ValueError(f"flash_attention: empty or oversized problem "
-                         f"B={B} H={H} Sq={Sq} Sk={Sk}")
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
-    status = _lib().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        ctypes.addressof(strides), _DTYPES[q.dtype], B, H, Hkv, Sq, Sk, D,
-        int(causal), int(window), int(prefix),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    if min(B, H, Sq, Sk) < 1:
+        raise ValueError(f"flash_attention: empty problem B={B} H={H} "
+                         f"Sq={Sq} Sk={Sk}")
+    out = torch.empty((B, Sq, H, D), dtype=dt, device=dev).transpose(1, 2)
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *out.stride()[:3])
+    status = _launch_fn()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        _DTYPES[dt], B, H, Hkv, Sq, Sk, D, int(causal), int(window),
+        int(prefix), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "flash_attention_launch")
     LAUNCHES["flash_attention"] += 1
     return out

@@ -88,6 +88,23 @@ def estep_fused_ref(x: torch.Tensor, mu: torch.Tensor, var: torch.Tensor,
     return logp, torch.logsumexp(logp, dim=-1)
 
 
+def attention_mask(Sq: int, Sk: int, *, causal: bool = True,
+                   window: int = 0, prefix: int = 0,
+                   device=None) -> torch.Tensor:
+    """(Sq, Sk) bool: which keys each query of ``attention_ref`` sees."""
+    q_pos = torch.arange(Sq, device=device) + (Sk - Sq)
+    k_pos = torch.arange(Sk, device=device)
+    rel = q_pos[:, None] - k_pos[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= rel >= 0
+    if window > 0:
+        mask &= rel < window
+    if prefix > 0:
+        mask |= (k_pos < prefix)[None, :]
+    return mask
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
                   prefix: int = 0) -> torch.Tensor:
@@ -104,16 +121,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     G = H // Hkv
     qf = q.float().reshape(B, Hkv, G, Sq, D)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) / math.sqrt(D)
-    q_pos = torch.arange(Sq, device=q.device) + (Sk - Sq)
-    k_pos = torch.arange(Sk, device=q.device)
-    rel = q_pos[:, None] - k_pos[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= rel >= 0
-    if window > 0:
-        mask &= rel < window
-    if prefix > 0:
-        mask |= (k_pos < prefix)[None, :]
+    mask = attention_mask(Sq, Sk, causal=causal, window=window,
+                          prefix=prefix, device=q.device)
     s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())

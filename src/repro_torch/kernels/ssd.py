@@ -3,11 +3,13 @@
 Port of ``repro/kernels/ssd.py`` (Pallas ``ssd``): per (b, h),
 ``S_t = e^{a_t} S_{t−1} + B_t x_tᵀ`` and ``y_t = C_tᵀ S_t`` with an f32
 N×P state and B, C shared over heads, returning (y, final state).  The
-kernel reads the shared (Bt, T, N) B and C directly (the TPU wrapper
-broadcast them to every head) and runs the recurrence step by step, so it
-takes any T; ``chunk`` is accepted for the reference's signature and
-changes nothing but rounding (see the note at the top of the ``.cu``
-file).
+kernels read the shared (Bt, T, N) B and C directly (the TPU wrapper
+broadcast them to every head) and take any T.  The input type picks the
+kernel: bf16 runs the chunked form on the tensor cores at its own chunk of
+64 steps, f32 the sequential recurrence on the CUDA cores; ``chunk`` is
+accepted for the reference's signature and changes nothing but rounding
+(``tests/test_torch_ssd_chunks.py``; see the note at the top of the
+``.cu`` file).
 
 Takes CUDA tensors only; ``ops`` sends CPU tensors to ``ref.ssd_ref``.
 ``LAUNCHES`` counts kernel launches.
@@ -44,12 +46,12 @@ def ssd(x: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
     (Bt, T, N) in x's dtype; s0: (Bt, H, N, P).  Returns (y (Bt, H, T, P)
     in x's dtype, final state (Bt, H, N, P) f32).
 
-    x, B and C may have any strides with a contiguous last dimension and
-    a_log any strides, so the block's transposed and split activations
-    pass without a copy.  The output is a (Bt, H, T, P) view of a
-    (Bt, T, H, P) tensor.
+    x, B and C may have any strides with a contiguous last dimension (bf16:
+    16-byte aligned, 8-byte for B and C when N = 4) and a_log any strides,
+    so the block's transposed and split activations pass without a copy.
+    The output is a (Bt, H, T, P) view of a (Bt, T, H, P) tensor.
     """
-    del chunk                       # the recurrence needs no chunking
+    del chunk                       # the kernels pick their own
     for name, t in (("x", x), ("a_log", a_log), ("B", B), ("C", C),
                     ("s0", s0)):
         if not t.is_cuda or t.device != x.device:
@@ -78,6 +80,17 @@ def ssd(x: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
         raise ValueError(f"ssd: need N in {STATE_DIMS}, P a multiple of 8 "
                          f"up to {MAX_HEAD_DIM}, Bt, H, T ≥ 1; got N={N}, "
                          f"x {tuple(x.shape)}")
+    if x.dtype == torch.bfloat16:
+        # rows arrive in 16-byte pieces (8-byte for B and C when N = 4)
+        for name, t, unit in (("x", x, 16), ("B", B, 16 if N % 8 == 0 else 8),
+                              ("C", C, 16 if N % 8 == 0 else 8)):
+            step = unit // t.element_size()
+            if t.data_ptr() % unit or any(
+                    st % step for st, n in zip(t.stride()[:-1],
+                                               t.shape[:-1]) if n > 1):
+                raise ValueError(f"ssd: {name} needs a {unit}-byte aligned "
+                                 f"base and strides, got pointer "
+                                 f"{t.data_ptr():#x} strides {t.stride()}")
     a_log = a_log.float()
     s0 = s0.float().contiguous()
     y = torch.empty((Bt, T, H, P), dtype=x.dtype,

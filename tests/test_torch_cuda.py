@@ -13,7 +13,9 @@ ssd 2e-4 in f32 (``tests/test_wkv6_kernel.py``, ``tests/test_ssd_kernel.py``),
 against the plain versions and, at the paths' head sizes and T = 200,
 against the float64 step recurrence; 1e-2 in bf16, where kernel and plain
 version each round one f32 result to bf16 (at most one bf16 step, 2^-8
-relative, apart).
+relative, apart).  The flash cases over several key tiles compare the
+rows with a visible key; bf16 layouts that the kernels cannot copy in
+16-byte pieces raise ``ValueError`` without a launch.
 """
 import dataclasses
 
@@ -101,6 +103,55 @@ def test_flash_attention(dev, B, H, Hkv, Sq, Sk, D, causal, window, prefix,
                                rtol=tol, atol=tol)
 
 
+# the bf16 kernel's tile skipping over several key tiles of 64
+SKIP_CASES = [
+    # B, H, Hkv, Sq, Sk, D, causal, window, prefix
+    (1, 4, 2, 512, 512, 112, True, 0, 0),    # causal S = 512, GQA, D = 112
+    (1, 2, 2, 512, 512, 64, True, 100, 0),   # tiles skipped on both sides
+    (1, 2, 2, 512, 512, 64, True, 0, 130),   # a prefix over two tiles
+    (1, 4, 2, 1, 515, 64, True, 0, 0),       # one query at the tail
+    (1, 4, 2, 70, 515, 112, True, 0, 0),     # 70 queries at the tail
+    (2, 2, 2, 200, 200, 80, False, 0, 0),    # bidirectional, ragged Sk
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal,window,prefix", SKIP_CASES)
+def test_flash_attention_tile_skipping(dev, B, H, Hkv, Sq, Sk, D, causal,
+                                       window, prefix, dtype, tol):
+    """Against the plain version on the rows with a visible key (the plain
+    version gives a row with none the mean of v, the kernels 0)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(Sq + Sk + window + prefix)
+    q, k, v = (torch.randn(B, h, S, D, generator=g, device=dev).to(dtype)
+               for h, S in ((H, Sq), (Hkv, Sk), (Hkv, Sk)))
+    kw = dict(causal=causal, window=window, prefix=prefix)
+    rows = ref.attention_mask(Sq, Sk, device=dev, **kw).any(-1)
+    out = FA.flash_attention(q, k, v, **kw)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out[:, :, rows],
+                               ref.attention_ref(q, k, v, **kw)[:, :, rows],
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("layout", ["base", "row_stride"])
+def test_flash_attention_refuses_misaligned_bf16_views(dev, layout):
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    if layout == "base":     # a base 2 bytes past a 16-byte boundary
+        flat = torch.randn(2 * 64 * 80 + 1, generator=g, device=dev)
+        q = flat.to(torch.bfloat16)[1:].view(1, 2, 64, 80)
+    else:                    # rows 84 elements (168 bytes) apart
+        q = torch.randn(1, 2, 64, 84, generator=g, device=dev) \
+            .to(torch.bfloat16)[..., :80]
+    k = torch.randn(1, 2, 64, 80, generator=g, device=dev).to(torch.bfloat16)
+    before = FA.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.flash_attention(q, k, k, causal=False)
+    assert FA.LAUNCHES["flash_attention"] == before
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rows_with_no_visible_key_are_zero(dev, dtype):
     q = torch.randn(1, 2, 8, 32, device=dev).to(dtype)
@@ -137,6 +188,37 @@ def test_ssd(dev, Bt, H, T, N, P, chunk, dtype, tol):
     assert y.dtype == dtype and sf.dtype == torch.float32
     torch.testing.assert_close(y, exp, rtol=tol, atol=tol)
     torch.testing.assert_close(sf, sf_exp, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("Bt,H,T,N,P,s0_scale,model_like", [
+    (64, 112, 512, 64, 64, 1.0, True),   # the path's shape, nonzero s0
+    (2, 3, 200, 64, 64, 1.0, False),     # ragged last chunk of 64
+    (2, 3, 65, 64, 64, 1.0, False),      # one step into the second chunk
+])
+def test_ssd_bf16_tensor_cores(dev, Bt, H, T, N, P, s0_scale, model_like):
+    g = torch.Generator(device=dev)
+    g.manual_seed(T)
+    args = checks.ssd_inputs(g, dev, Bt, H, T, N, P, torch.bfloat16,
+                             s0_scale, model_like=model_like)
+    y, sf = SSD.ssd(*args, chunk=256)
+    exp, sf_exp = ref.ssd_ref(*args, chunk=256)
+    assert y.dtype == torch.bfloat16 and sf.dtype == torch.float32
+    torch.testing.assert_close(y, exp, rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(sf, sf_exp, rtol=1e-2, atol=1e-2)
+
+
+def test_ssd_refuses_misaligned_bf16_views(dev):
+    """x rows 68 elements (136 bytes) apart: not 16-byte pieces."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    x, a, Bm, Cm, s0 = checks.ssd_inputs(g, dev, 1, 2, 64, 16, 64,
+                                         torch.bfloat16)
+    wide = torch.zeros(1, 2, 64, 68, device=dev, dtype=torch.bfloat16)
+    wide[..., :64] = x
+    before = SSD.LAUNCHES["ssd"]
+    with pytest.raises(ValueError, match="16-byte"):
+        SSD.ssd(wide[..., :64], a, Bm, Cm, s0)
+    assert SSD.LAUNCHES["ssd"] == before
 
 
 @pytest.mark.parametrize("name", ["wkv6", "ssd"])
