@@ -114,36 +114,25 @@ def check_close(torch, name, got, exp, tol, **shape) -> float:
     return max_err
 
 
-def estep_inputs(torch, g, dev, Bx, B, N, K, d, spher=False):
-    x = torch.randn(Bx, N, d, generator=g, device=dev)
-    mu = torch.randn(B, K, d, generator=g, device=dev)
-    var = torch.nn.functional.softplus(
-        torch.randn((B, K) if spher else (B, K, d), generator=g,
-                    device=dev)) + 0.1
-    pi = torch.softmax(torch.randn(B, K, generator=g, device=dev), -1)
-    return x, mu, var, pi
-
-
 def kernel_phase(torch, dev, card):
     """Every kernel against its plain version at the main path's and the
     edge shapes; times at the main path's shapes."""
+    from repro_torch.kernels import checks, ref
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import gmm_estep as GE
-    from repro_torch.kernels import ref
 
     g = torch.Generator(device=dev)
     g.manual_seed(1)
     res = {}
 
-    # --- E-step: per-client (B = C = 10), cohort (Bx = 4), ragged spher
-    for tag, (Bx, B, N, K, d, spher) in {
-            "main": (1, 10, 1000, 10, 1280, False),
-            "cohort": (4, 40, 1000, 10, 1280, False),
-            "ragged_spher": (1, 3, 1001, 7, 1280, True)}.items():
-        args = estep_inputs(torch, g, dev, Bx, B, N, K, d, spher)
+    # --- E-step: the main path's client call, the cohort, ragged N, K and
+    # d, spher, K over several component tiles, K = 1 (kernels.checks)
+    for tag, (Bx, B, N, K, d, spher) in checks.ESTEP_CASES.items():
+        args = checks.estep_inputs(g, dev, Bx, B, N, K, d, spher)
         lp, lse = GE.estep_fused(*args)
         elp, else_ = ref.estep_fused_ref(*args)
-        shape = dict(case=tag, Bx=Bx, B=B, N=N, K=K, d=d, spher=spher)
+        shape = dict(case=tag, Bx=Bx, B=B, N=N, K=K, d=d, spher=spher,
+                     plan=GE.launch_plan(Bx, B, N, K, d)._asdict())
         err = max(check_close(torch, "estep_fused", lp, elp, ESTEP_TOL,
                               output="logp", **shape),
                   check_close(torch, "estep_fused", lse, else_, ESTEP_TOL,
@@ -163,8 +152,8 @@ def kernel_phase(torch, dev, card):
                 library_ms=None, flops=flops, bytes=nbytes,
                 peak=F32_FLOPS)
 
-    x, mu, var, pi = (a[0] for a in estep_inputs(torch, g, dev, 1, 1, 1000,
-                                                 10, 1280))
+    x, mu, var, pi = (a[0] for a in checks.estep_inputs(g, dev, 1, 1, 1000,
+                                                        10, 1280))
     err = check_close(torch, "estep", GE.estep(x, mu, var, pi),
                       ref.estep_ref(x, mu, var, pi), ESTEP_TOL, N=1000, K=10,
                       d=1280)
@@ -282,23 +271,21 @@ def kernel_phase(torch, dev, card):
     return res
 
 
-# bf16 cases at the paths' head sizes: tag, B, H, T, Dh, chunk, s0 scale;
-# the main path's shape (s0 = 0, as the path passes it), then T = 200,
-# which no chunk divides.  The f32 cases are kernels.checks' shapes.
-WKV6_BF16 = [("main", 64, 40, 512, 64, 64, 0.0),
-             ("T=200", 4, 40, 200, 64, 64, 1.0)]
-# tag, Bt, H, T, N, P, chunk, s0 scale
-SSD_BF16 = [("main", 64, 112, 512, 64, 64, 256, 0.0),
-            ("T=200", 4, 112, 200, 64, 64, 256, 1.0),
-            ("T=65", 4, 112, 65, 64, 64, 256, 1.0)]
+# bf16 ssd at the path's head sizes: tag, (Bt, H, T, N, P), chunk, s0
+# scale, and None for the lw fill that only wkv6's cases have
+# (kernels.checks.WKV6_BF16): the main path's shape (s0 = 0, as the path
+# passes it), then T = 200 and T = 65, which no chunk divides
+SSD_BF16 = [("main", (64, 112, 512, 64, 64), 256, 0.0, None),
+            ("T=200", (4, 112, 200, 64, 64), 256, 1.0, None),
+            ("T=65", (4, 112, 65, 64, 64), 256, 1.0, None)]
 
 
 def recurrent_checks(torch, dev, g, res):
-    """wkv6 and ssd, output and final state: bf16 at the main path's shape
-    and at T = 200 against their plain versions; f32 at the reference
-    tests' shapes with a nonzero s0 against their plain versions; f32 at
-    the paths' head sizes and T = 200 against the float64 step recurrence.
-    Times at the main path's shapes."""
+    """wkv6 and ssd, output and final state: bf16 at the main path's shape,
+    at T = 200 (and wkv6 at lw ≡ −8 and lw ≡ 0) against their plain
+    versions; f32 at the reference tests' shapes with a nonzero s0 against
+    their plain versions; f32 at the paths' head sizes and T = 200 against
+    the float64 step recurrence.  Times at the main path's shapes."""
     from repro_torch.kernels import checks, ref
     from repro_torch.kernels import ssd as SSD
     from repro_torch.kernels import wkv6 as WKV
@@ -309,20 +296,23 @@ def recurrent_checks(torch, dev, g, res):
 
     kinds = {"wkv6": (WKV.wkv6, ref.wkv6_ref, checks.wkv6_steps,
                       checks.wkv6_inputs, "B,H,T,Dh", WKV6_TOL_F32,
-                      WKV6_BF16, checks.WKV6_SHAPES, checks.WKV6_LONG),
+                      checks.WKV6_BF16, checks.WKV6_SHAPES,
+                      checks.WKV6_LONG),
              "ssd": (SSD.ssd, ref.ssd_ref, checks.ssd_steps,
                      checks.ssd_inputs, "Bt,H,T,N,P", SSD_TOL_F32,
                      SSD_BF16, checks.SSD_SHAPES, checks.SSD_LONG)}
     for name, (fn, plain, steps, inputs, dims, tol, bf16_cases, shapes,
                long_shape) in kinds.items():
-        cases = [(tag, dims_, chunk, torch.bfloat16, s0s, "plain")
-                 for tag, *dims_, chunk, s0s in bf16_cases]
+        cases = [(tag, dims_, chunk, torch.bfloat16, s0s, fill, "plain")
+                 for tag, dims_, chunk, s0s, fill in bf16_cases]
         cases += [("ref T%chunk" if c[2] % c[-1] else "ref", c[:-1], c[-1],
-                   torch.float32, 1.0, "plain") for c in shapes]
+                   torch.float32, 1.0, None, "plain") for c in shapes]
         cases.append(("T=200", long_shape[:-1], long_shape[-1],
-                      torch.float32, 1.0, "float64 steps"))
-        for tag, dims_, chunk, dt, s0s, against in cases:
-            args = inputs(g, dev, *dims_, dt, s0s, model_like=tag == "main")
+                      torch.float32, 1.0, None, "float64 steps"))
+        for tag, dims_, chunk, dt, s0s, fill, against in cases:
+            kw = {} if fill is None else {"lw_fill": fill}
+            args = inputs(g, dev, *dims_, dt, s0s,
+                          model_like=tag == "main" or fill is not None, **kw)
             if against == "plain":
                 exp = plain(*args, chunk=chunk)
             else:
@@ -330,7 +320,8 @@ def recurrent_checks(torch, dev, g, res):
             err = check(name, fn(*args, chunk=chunk), exp,
                         REC_TOL_BF16 if dt == torch.bfloat16 else tol,
                         case=tag, **dict(zip(dims.split(","), dims_)),
-                        chunk=chunk, dtype=str(dt), against=against)
+                        chunk=chunk, dtype=str(dt), against=against,
+                        **kw)
             if tag == "main":
                 res[name] = dict(
                     max_abs_err=err,
@@ -343,16 +334,34 @@ def recurrent_checks(torch, dev, g, res):
                     **recurrent_work(name, *dims_, chunk=chunk))
 
 
-# the bf16 ssd kernel's own chunk (csrc/ssd.cu), whatever the model's
+# the bf16 kernels' own chunks (csrc/wkv6.cu, csrc/ssd.cu), whatever the
+# model's
+WKV6_KERNEL_CHUNK = 64
 SSD_KERNEL_CHUNK = 64
+MMA_FLOPS = 2.0 * 16 * 8 * 16        # one mma.sync m16n8k16
+
+
+def wkv6_mma_count():
+    """mma.sync m16n8k16 per chunk and (b, h) of the bf16 wkv6 kernel, Dh
+    padded to 64, four warps of 16 steps: A over the s-tiles before a
+    warp's rows and the factorised quadrant of its diagonal tile (three
+    products: hi hi, hi lo, lo hi), A v over the s-tiles up to its rows
+    and kdecᵀ v (two: A and kdec as hi + lo), rdec S (three)."""
+    warps, ks, nt = WKV6_KERNEL_CHUNK // 16, 64 // 16, 64 // 8
+    a_off = sum(w * 2 * ks * 3 for w in range(warps))
+    a_quad = warps * ks * 3
+    a_v = sum((w + 1) * nt * 2 for w in range(warps))
+    state = warps * ks * nt * 2
+    r_s = warps * ks * nt * 3
+    return a_off + a_quad + a_v + state + r_s
 
 
 def recurrent_work(name, B, H, T, *dims, chunk):
     """The bytes that wkv6 / ssd must move and the operations of their
     chunked form (chunk C) on the bf16 tensor cores: the function's bound.
     ``design_flops`` over ``design_peak``: the bound of the design that
-    runs — for wkv6 the f32 operations of the sequential CUDA-core kernel,
-    for ssd the tensor-core products of the chunked bf16 kernel."""
+    runs, the tensor-core products of the chunked bf16 kernels (wkv6's
+    exact pairs of its diagonal quadrants run on the CUDA cores besides)."""
     if name == "wkv6":
         (Dh,) = dims
         n = B * H * T * Dh
@@ -363,8 +372,9 @@ def recurrent_work(name, B, H, T, *dims, chunk):
             bytes=2.0 * 4 * n + 4.0 * n + 4.0 * H * Dh
             + 2 * 4.0 * B * H * Dh * Dh,
             peak=BF16_FLOPS,
-            # per step and state element: k·v, u·kv + S, r·(…), w·S + kv
-            design_flops=7.0 * n * Dh, design_peak=F32_FLOPS)
+            design_flops=MMA_FLOPS * wkv6_mma_count() * B * H
+            * -(-T // WKV6_KERNEL_CHUNK),
+            design_peak=BF16_FLOPS)
     N, P = dims
     n = B * H * T * P
     # the kernel's products per chunk of L and (b, h), N and P padded to

@@ -1,16 +1,41 @@
-"""Check cases of the recurrent kernels ``wkv6`` and ``ssd``.
+"""Check cases of the kernels: the E-step's shapes, and those of the
+recurrent kernels ``wkv6`` and ``ssd``.
 
 Shared by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``, which hold the
 CUDA kernels against their plain versions on a card, and (the shapes) by
 ``tests/test_torch_recurrent.py``, which holds the plain versions against
 the JAX package: the check shapes, inputs drawn from a ``torch.Generator``,
-and each recurrence one step at a time, as the CUDA kernels run it.  A
+and each recurrence one step at a time, as the f32 CUDA kernels run it.  A
 check runs the step recurrence in float64 as the exact answer.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+# E-step, tag: (Bx, B, N, K, d, spher): the main path's client call (one
+# feature block shared by 10 class fits of K = 10), the server's cohort
+# (4 clients x 10 classes), ragged N and K with spher variances, K over
+# three component tiles, K = 1, and ragged N, K and d (d % 4 != 0: the
+# kernel's 4-byte copies) with few rows
+ESTEP_CASES = {"main": (1, 10, 1000, 10, 1280, False),
+               "cohort": (4, 40, 1000, 10, 1280, False),
+               "ragged_spher": (1, 3, 1001, 7, 1280, True),
+               "K=33": (2, 4, 333, 33, 128, False),
+               "K=1": (1, 5, 257, 1, 96, False),
+               "ragged_d_spher": (2, 6, 1001, 7, 130, True),
+               "tiny": (3, 3, 5, 20, 33, False)}
+
+# bf16 wkv6 at the path's head size against the plain version: tag, (B, H,
+# T, Dh), chunk, s0 scale, lw fill.  The main path's shape (s0 = 0, as the
+# path passes it) with the RWKV block's inputs; T = 200, which no chunk
+# divides; and lw held at the model's clamp (-8: every decay factor of a
+# chunk underflows past a few steps) and at 0 (no decay: the state and
+# the outputs grow over T)
+WKV6_BF16 = [("main", (64, 40, 512, 64), 64, 0.0, None),
+             ("T=200", (4, 40, 200, 64), 64, 1.0, None),
+             ("lw=-8", (4, 40, 512, 64), 64, 1.0, -8.0),
+             ("lw=0", (4, 40, 512, 64), 64, 1.0, 0.0)]
 
 # (B, H, T, Dh, chunk): tests/test_wkv6_kernel.py's shapes, then two with
 # T % chunk != 0 (the plain version then takes one chunk of T)
@@ -28,19 +53,31 @@ WKV6_LONG = (2, 2, 200, 64, 64)
 SSD_LONG = (2, 2, 200, 64, 64, 256)
 
 
+def estep_inputs(g: torch.Generator, dev, Bx, B, N, K, d, spher=False):
+    """(x (Bx, N, d), mu (B, K, d), var diag (B, K, d) or spher (B, K),
+    pi (B, K)), f32."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+    x, mu = rnd(Bx, N, d), rnd(B, K, d)
+    var = F.softplus(rnd(*((B, K) if spher else (B, K, d)))) + 0.1
+    return x, mu, var, torch.softmax(rnd(B, K), -1)
+
+
 def wkv6_inputs(g: torch.Generator, dev, B, H, T, Dh, dtype=torch.float32,
-                s0_scale=1.0, model_like=False):
+                s0_scale=1.0, model_like=False, lw_fill=None):
     """(r, k, v, lw, u, s0): r, k, v in ``dtype``; lw ≤ 0, u, s0 in f32.
     ``model_like`` lays r, k, v, lw out as the RWKV block passes them
     ((B, T, H, Dh) transposed) with lw = −exp(w0 + δ), w0 = −0.6, clamped
-    to [−8, 0]."""
+    to [−8, 0]; ``lw_fill`` then holds lw at that value."""
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=dev)
     if model_like:
         r, k, v = (rnd(B, T, H, Dh).to(dtype).transpose(1, 2)
                    for _ in range(3))
-        lw = (-torch.exp(-0.6 + 0.3 * rnd(B, T, H, Dh))).clamp(-8.0, 0.0) \
-            .transpose(1, 2)
+        lw = (-torch.exp(-0.6 + 0.3 * rnd(B, T, H, Dh))).clamp(-8.0, 0.0)
+        if lw_fill is not None:
+            lw = torch.full_like(lw, lw_fill)
+        lw = lw.transpose(1, 2)
     else:
         r, k, v = (rnd(B, H, T, Dh).to(dtype) for _ in range(3))
         lw = -F.softplus(rnd(B, H, T, Dh))

@@ -1,26 +1,29 @@
 """Time versions of the bf16 kernels side by side on one card, in turns.
 
     python3 src/repro_torch/kernels/compare.py --tree NAME=DIR [--tree ...]
-        [--flash NAME=BASE:FILE.cu[:ABLATION] ...] [--rounds 2]
-        [--only flash] [--out build/compare.jsonl]
+        [--flash NAME=BASE:FILE.cu[:ABLATION] ...]
+        [--ablate NAME=BASE:ABLATION[:ABLATION] ...] [--rounds 2]
+        [--only flash,ssd,wkv6,estep] [--out build/compare.jsonl]
+    python3 src/repro_torch/kernels/compare.py --sweep-estep
+        [--out build/estep_plans.jsonl]
 
 A ``--tree`` is a checkout of the repository: ``.`` for the working tree,
 or a commit unpacked into a git-ignored directory, as in
 ``git archive <commit> | tar -x -C build/exp/<name>``.  A ``--flash``
 version is the tree named BASE with its ``csrc/flash_attention.cu``
 replaced by FILE (copied to ``build/exp/cmp-<NAME>``; ``kernels/variants/``
-holds the measured alternatives), optionally cut by an ABLATION to time
-one part of the bf16 kernel alone: ``copies_only`` (the key-tile loop
-with its copies and barriers, no products or softmax) or
-``products_only`` (no copies after the first two key tiles: products and
-softmax on stale tiles).  Ablated versions give wrong outputs by design;
+holds the measured alternatives), optionally cut by an ABLATION.  An
+``--ablate`` version is the tree BASE with ABLATIONS applied to its
+sources: each times one part of a kernel alone or leaves one part out
+(``ABLATIONS`` below: flash's copies or products alone; ``wkv6`` or the
+E-step without one part).  Ablated versions give wrong outputs by design;
 their errors are reported, not checked.  Each round runs
 every version in turn, then again in the reverse order (A B … B A), each
 in a child process that imports that version's ``repro_torch``, builds
 its kernels into the version's own ``build/kernels/``, holds flash at the
-encoder's and zamba2-7b's shapes, ``ssd`` at the zamba2-7b path's shape
-and the two E-steps against their plain versions, and times each kernel
-(and SDPA beside flash) two ways:
+encoder's and zamba2-7b's shapes, ``ssd`` at the zamba2-7b path's shape,
+``wkv6`` at the rwkv6-3b path's shape and the two E-steps against their
+plain versions, and times each kernel (and SDPA beside flash) two ways:
 
 - ``single_ms``: the median over 25 calls of an event pair around one
   call, the card idle between calls; this counts the host's work to
@@ -29,9 +32,13 @@ and the two E-steps against their plain versions, and times each kernel
   three such runs, per call: the card's time, the host's launch work
   overlapped with it.
 
-``--only flash`` builds and times flash alone.  Prints one JSON object per
+``--only`` builds and times the named groups alone (``flash``, ``ssd``,
+``wkv6``, ``estep``: both E-steps).  Prints one JSON object per
 version and round, then a summary; writes both to ``--out``.
-``chip_smoke.py`` takes its timers from here.
+``--sweep-estep`` times every launch plan of the E-step kernel at the main
+path's shapes (one CUDA graph replayed: the card's time alone) and says
+where the wrapper's pick ranks.  ``chip_smoke.py`` takes its timers from
+here.
 """
 from __future__ import annotations
 
@@ -50,6 +57,8 @@ FLASH = {"flash_attention": (256, 16, 64, 80, False),
          "flash_attention_d112": (64, 32, 512, 112, True)}
 SSD_MAIN = (64, 112, 512, 64, 64)       # Bt, H, T, N, P; the model's chunk
 SSD_CHUNK = 256
+WKV6_MAIN = (64, 40, 512, 64)           # B, H, T, Dh; the model's chunk
+WKV6_CHUNK = 64
 
 
 def single_call_ms(torch, fn) -> float:
@@ -99,81 +108,144 @@ def _times(torch, fn) -> dict:
             "device_ms": device_ms(torch, fn)}
 
 
-KERNELS = (*FLASH, "ssd", "estep_fused", "estep")
+KERNELS = (*FLASH, "ssd", "wkv6", "estep_fused", "estep")
+# --only: each group's source and the kernels it times
+GROUPS = {"flash": "flash_attention.cu", "ssd": "ssd.cu", "wkv6": "wkv6.cu",
+          "estep": "gmm_estep.cu"}
 
 
 def child(label: str, only: str = "") -> dict:
-    """One version: build, check and time its kernels on the card."""
+    """One version: build, check and time its kernels on the card (the
+    groups named in ``only``, comma-separated, or all)."""
     import torch
     from repro_torch.kernels import _build, checks, ref
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import gmm_estep as GE
     from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels import wkv6 as WKV
 
+    groups = only.split(",") if only else list(GROUPS)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    reports = _build.build(["flash_attention.cu"] if only else
-                           ["flash_attention.cu", "ssd.cu", "gmm_estep.cu"])
+    reports = _build.build([GROUPS[grp] for grp in groups])
     res = {"version": label, "tree": str(Path(_build.CSRC).parents[3]),
            "build_s": time.perf_counter() - t0,
-           "ptxas_flash": [ln.strip() for ln in
-                           reports.get("flash_attention.cu", "").splitlines()
-                           if "registers" in ln or "spill" in ln]}
-    g = torch.Generator(device=dev).manual_seed(0)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    for name, (B, H, S, D, causal) in FLASH.items():
-        q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev)
-                   .to(torch.bfloat16) for _ in range(3))
-        got = FA.flash_attention(q, k, v, causal=causal)
-        exp = ref.attention_ref(q, k, v, causal=causal)
-        res[name] = {"max_abs_err": float((got.float() - exp.float())
-                                          .abs().max()),
-                     **_times(torch, lambda: FA.flash_attention(
-                         q, k, v, causal=causal)),
-                     "library": _times(torch, lambda: sdpa(
-                         q, k, v, is_causal=causal))}
-        del q, k, v, got, exp
-    if only:
-        return res
-    args = checks.ssd_inputs(g, dev, *SSD_MAIN, torch.bfloat16, 0.0,
-                             model_like=True)
-    got = SSD.ssd(*args, chunk=SSD_CHUNK)
-    exp = ref.ssd_ref(*args, chunk=SSD_CHUNK)
-    res["ssd"] = {"max_abs_err": max(float((a.float() - b.float()).abs()
-                                           .max()) for a, b in zip(got, exp)),
-                  **_times(torch, lambda: SSD.ssd(*args, chunk=SSD_CHUNK))}
-    del args, got, exp
-    x = torch.randn(1, 1000, 1280, generator=g, device=dev)
-    mu = torch.randn(10, 10, 1280, generator=g, device=dev)
-    var = torch.nn.functional.softplus(
-        torch.randn(10, 10, 1280, generator=g, device=dev)) + 0.1
-    pi = torch.softmax(torch.randn(10, 10, generator=g, device=dev), -1)
-    lp, _ = GE.estep_fused(x, mu, var, pi)
-    elp, _ = ref.estep_fused_ref(x, mu, var, pi)
-    res["estep_fused"] = {"max_abs_err": float((lp - elp).abs().max()),
-                          **_times(torch, lambda: GE.estep_fused(
-                              x, mu, var, pi))}
-    x0, mu0, var0, pi0 = x[0], mu[0], var[0], pi[0]
-    res["estep"] = {"max_abs_err": float(
-        (GE.estep(x0, mu0, var0, pi0) - ref.estep_ref(x0, mu0, var0, pi0))
-        .abs().max()), **_times(torch, lambda: GE.estep(x0, mu0, var0, pi0))}
+           "ptxas": {src: [ln.strip() for ln in rep.splitlines()
+                           if "registers" in ln or "spill" in ln]
+                     for src, rep in reports.items()}}
+    # each group draws its inputs from its own seed, whatever runs before
+    g = torch.Generator(device=dev)
+    if "flash" in groups:
+        g.manual_seed(0)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        for name, (B, H, S, D, causal) in FLASH.items():
+            q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev)
+                       .to(torch.bfloat16) for _ in range(3))
+            got = FA.flash_attention(q, k, v, causal=causal)
+            exp = ref.attention_ref(q, k, v, causal=causal)
+            res[name] = {"max_abs_err": float((got.float() - exp.float())
+                                              .abs().max()),
+                         **_times(torch, lambda: FA.flash_attention(
+                             q, k, v, causal=causal)),
+                         "library": _times(torch, lambda: sdpa(
+                             q, k, v, is_causal=causal))}
+            del q, k, v, got, exp
+    for grp, fn, plain, inputs, shape, chunk in (
+            ("ssd", SSD.ssd, ref.ssd_ref, checks.ssd_inputs, SSD_MAIN,
+             SSD_CHUNK),
+            ("wkv6", WKV.wkv6, ref.wkv6_ref, checks.wkv6_inputs, WKV6_MAIN,
+             WKV6_CHUNK)):
+        if grp not in groups:
+            continue
+        g.manual_seed(0)
+        args = inputs(g, dev, *shape, torch.bfloat16, 0.0, model_like=True)
+        got = fn(*args, chunk=chunk)
+        exp = plain(*args, chunk=chunk)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, exp))
+        res[grp] = {"max_abs_err": err,
+                    **_times(torch, lambda: fn(*args, chunk=chunk))}
+        del args, got, exp
+    if "estep" in groups:
+        g.manual_seed(0)
+        x = torch.randn(1, 1000, 1280, generator=g, device=dev)
+        mu = torch.randn(10, 10, 1280, generator=g, device=dev)
+        var = torch.nn.functional.softplus(
+            torch.randn(10, 10, 1280, generator=g, device=dev)) + 0.1
+        pi = torch.softmax(torch.randn(10, 10, generator=g, device=dev), -1)
+        lp, _ = GE.estep_fused(x, mu, var, pi)
+        elp, _ = ref.estep_fused_ref(x, mu, var, pi)
+        res["estep_fused"] = {"max_abs_err": float((lp - elp).abs().max()),
+                              **_times(torch, lambda: GE.estep_fused(
+                                  x, mu, var, pi))}
+        x0, mu0, var0, pi0 = x[0], mu[0], var[0], pi[0]
+        res["estep"] = {"max_abs_err": float(
+            (GE.estep(x0, mu0, var0, pi0) - ref.estep_ref(x0, mu0, var0, pi0))
+            .abs().max()), **_times(torch, lambda: GE.estep(
+                x0, mu0, var0, pi0))}
     return res
 
 
-# text edits of the bf16 kernel's key-tile loop (csrc/flash_attention.cu
-# and the variants that share its loop)
+# text edits that time one part of a kernel alone (their outputs are wrong
+# by design): name: (the csrc source edited, [(line, replacement), ...])
 ABLATIONS = {
-    "copies_only": (
-        "    if (!(tile < w_pre || (tile >= w_lo && tile < w_hi))) continue;\n",
-        "    continue;\n"),
-    "products_only": (
-        "if (idx + 1 < n_vis) issue(idx + 1, (idx + 1) % NST);",
-        "if (idx == 0 && n_vis > 1) issue(1, 1);"),
+    # flash's key-tile loop (and the variants that share it): the copies
+    # and barriers alone, or the products and softmax on stale tiles
+    "copies_only": ("flash_attention.cu", [
+        ("    if (!(tile < w_pre || (tile >= w_lo && tile < w_hi)))"
+         " continue;\n", "    continue;\n")]),
+    "products_only": ("flash_attention.cu", [
+        ("if (idx + 1 < n_vis) issue(idx + 1, (idx + 1) % NST);",
+         "if (idx == 0 && n_vis > 1) issue(1, 1);")]),
+    # bf16 wkv6 without one part of a chunk: the exact diagonal quadrants
+    # and the bonus, A over the earlier s-tiles, r_dec S, the next chunk's
+    # copies
+    "wkv6_no_exact": ("wkv6.cu", [
+        ("    if (lane < 28) {\n", "    if (lane < 0) {\n"),
+        ("    if (lane < 16) {\n", "    if (lane < 0) {\n")]),
+    "wkv6_no_kt": ("wkv6.cu", [("      if (J >= warp) break;\n",
+                                "      if (J >= 0) break;\n")]),
+    "wkv6_no_rdec_s": ("wkv6.cu", [
+        ("    for (int ks = 0; ks < 4; ++ks) {\n"
+         "      uint32_t sh[DP / 16][4]",
+         "    for (int ks = 0; ks < 0; ++ks) {\n"
+         "      uint32_t sh[DP / 16][4]")]),
+    "wkv6_no_copies": ("wkv6.cu", [("    if (c + 1 < nc) load(c + 1);\n",
+                                    "    if (c + 1 < 1) load(c + 1);\n")]),
+    # the E-step kernel without the copies past the first chunks, or
+    # without its sums
+    "estep_no_copies": ("gmm_estep.cu", [
+        ("      if (ch + NST - 1 < nch) load(ch + NST - 1);\n", "")]),
+    "estep_no_sums": ("gmm_estep.cu", [
+        ("      for (int kk = 0; kk < KT; ++kk) {\n        const float4 iv",
+         "      for (int kk = 0; kk < KT * (ch < 0); ++kk) {\n"
+         "        const float4 iv")]),
 }
 
 
-def _versions(args) -> dict:
+def ablate(text: str, source: str, cut: str) -> str:
+    """``text`` of ``source`` with ablation ``cut`` applied; each edited
+    line must appear exactly once."""
+    target, edits = ABLATIONS[cut]
+    if target != source:
+        raise ValueError(f"ablation {cut} edits {target}, not {source}")
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"{source}: no single line for ablation {cut}")
+        text = text.replace(old, new)
+    return text
+
+
+def _copy_tree(trees, base: str, name: str) -> Path:
     root = Path(__file__).resolve().parents[3]
+    dst = root / "build" / "exp" / f"cmp-{name}"
+    shutil.rmtree(dst / "src", ignore_errors=True)
+    shutil.copytree(trees[base] / "src", dst / "src",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    return dst
+
+
+def _versions(args) -> dict:
     trees = {}
     for spec in args.tree:
         name, path = spec.split("=", 1)
@@ -183,31 +255,127 @@ def _versions(args) -> dict:
         base, cu, *cut = rest.split(":")
         text = Path(cu).read_text()
         for c in cut:
-            old, new = ABLATIONS[c]
-            if old not in text:
-                raise ValueError(f"{cu}: no loop line for ablation {c}")
-            text = text.replace(old, new)
-        dst = root / "build" / "exp" / f"cmp-{name}"
-        shutil.rmtree(dst / "src", ignore_errors=True)
-        shutil.copytree(trees[base] / "src", dst / "src",
-                        ignore=shutil.ignore_patterns("__pycache__"))
+            text = ablate(text, "flash_attention.cu", c)
+        dst = _copy_tree(trees, base, name)
         (dst / "src/repro_torch/kernels/csrc/flash_attention.cu").write_text(
             text)
         trees[name] = dst
+    for spec in args.ablate:
+        name, rest = spec.split("=", 1)
+        base, *cuts = rest.split(":")
+        edits = {}
+        for c in cuts:
+            source = ABLATIONS[c][0]
+            text = edits.get(source) or (
+                trees[base] / "src/repro_torch/kernels/csrc" / source
+            ).read_text()
+            edits[source] = ablate(text, source, c)
+        dst = _copy_tree(trees, base, name)
+        for source, text in edits.items():
+            (dst / "src/repro_torch/kernels/csrc" / source).write_text(text)
+        trees[name] = dst
     return trees
+
+
+def graph_ms(torch, fn, n: int = 100) -> float:
+    """Device time of one call of ``fn`` alone: the call captured in a CUDA
+    graph, replayed ``n`` times between two events (no host work)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    for _ in range(5):
+        graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+# E-step shapes of the main path: the client call, the cohort, one fit
+ESTEP_SWEEP = {"main": (1, 10, 1000, 10, 1280),
+               "cohort": (4, 40, 1000, 10, 1280),
+               "single": (1, 1, 1000, 10, 1280)}
+
+
+def sweep_estep_plans(out: Path) -> None:
+    """Every E-step plan that ``gmm_estep.launch_plan`` may pick, timed on
+    the card (``graph_ms``, prep kernel included) at ``ESTEP_SWEEP``'s
+    shapes, each checked against the plain version; one JSON line a plan,
+    then the rank of the plan the wrapper picks."""
+    import itertools
+
+    import torch
+    from repro_torch.kernels import checks, ref
+    from repro_torch.kernels import gmm_estep as GE
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    pick = GE.launch_plan
+    with out.open("w") as f:
+        for tag, shape in ESTEP_SWEEP.items():
+            g.manual_seed(0)
+            args = checks.estep_inputs(g, dev, *shape)
+            elp, _ = ref.estep_fused_ref(*args)
+            chosen, rows = pick(*shape), []
+            for splits, fits, slots in itertools.product(
+                    GE.SPLITS, (1, 2, 4, 8, 16), range(1, 17)):
+                plan = GE.Plan(chosen.k_tile, splits, fits, slots)
+                if plan.threads % 32 or plan.threads > GE.MAX_THREADS \
+                        or fits > shape[1] // shape[0] \
+                        or plan.smem_bytes() > GE.MAX_SMEM:
+                    continue
+                GE.launch_plan = lambda *a, p=plan: p
+                try:
+                    lp, _ = GE.estep_fused(*args)
+                    err = float((lp - elp).abs().max())
+                    ms = graph_ms(torch, lambda: GE.estep_fused(*args), 50)
+                finally:
+                    GE.launch_plan = pick
+                gx, gy = plan.grid(*shape[:3])
+                rows.append(dict(case=tag, plan=plan._asdict(),
+                                 threads=plan.threads, blocks=gx * gy,
+                                 graph_ms=ms, max_abs_err=err,
+                                 picked=plan == chosen))
+            rows.sort(key=lambda r: r["graph_ms"])
+            for rank, r in enumerate(rows):
+                r["rank"] = rank
+                f.write(json.dumps(r) + "\n")
+            best = rows[0]
+            mine = next(r for r in rows if r["picked"])
+            print(json.dumps({"case": tag, "plans": len(rows),
+                              "best": best, "picked": mine}), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", action="append", default=[])
     ap.add_argument("--flash", action="append", default=[])
+    ap.add_argument("--ablate", action="append", default=[])
+    ap.add_argument("--sweep-estep", action="store_true",
+                    help="time every E-step plan at the main path's shapes")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--only", choices=["", "flash"], default="")
+    ap.add_argument("--only", default="",
+                    help="comma-separated groups of " + ", ".join(GROUPS))
     ap.add_argument("--out", default="build/compare.jsonl")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
         print(json.dumps(child(args.child, args.only)), flush=True)
+        return 0
+    if args.sweep_estep:
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        sweep_estep_plans(out)
         return 0
     trees = _versions(args)
     order = list(trees)

@@ -72,6 +72,7 @@ using tc::ldsm_x4;
 using tc::ldsm_x4_t;
 using tc::mma_bf16;
 using tc::smem_u32;
+using tc::split2;
 
 template <typename T, int N>
 __global__ void __launch_bounds__(4 * MAX_P)
@@ -152,19 +153,6 @@ constexpr int L = 64;         // steps per chunk
 constexpr int PP = 64;        // head dim padded: four warps x 16 columns
 constexpr int XP = PP + 8;    // x and y row pitch (an odd multiple of 16 B)
 constexpr int MMA_THREADS = 128;
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-// (lo, hi) f32 as the bf16 pair hi_part + lo_part: hi_part the rounding,
-// lo_part the rounding of the rest
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x0 - __low2float(h),
-                                    x1 - __high2float(h)));
-}
 
 // (Fragment layouts: tensor_core.cuh.)
 //

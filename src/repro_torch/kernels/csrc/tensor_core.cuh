@@ -1,6 +1,6 @@
-// Device helpers shared by the bf16 tensor-core kernels (flash_attention.cu,
-// ssd.cu): asynchronous global-to-shared copies, ldmatrix and mma.sync
-// m16n8k16 (bf16 inputs, f32 accumulators).
+// Device helpers shared by the kernels (flash_attention.cu, ssd.cu, wkv6.cu,
+// gmm_estep.cu): asynchronous global-to-shared copies, ldmatrix, mma.sync
+// m16n8k16 (bf16 inputs, f32 accumulators), bf16 packing and 2^x.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4*g + t): A (16x16) a0 = (g,
 // 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..), a3 = (g+8, 2t+8..); B
@@ -36,9 +36,12 @@ __device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// wait until at most `n` committed groups of this thread are in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
+__device__ __forceinline__ void cp_async_wait_all() { cp_async_wait<0>(); }
 
 // Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
 // l / 8 and receives element (l / 4, 2 (l % 4) .. + 1) of each, or with
@@ -71,6 +74,22 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (x0, x1) as the bf16 pairs hi + lo: hi the rounding, lo the rounding of
+// the rest (about 16 significant bits together)
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+
+// 2^x on the special-function unit (relative error < 2^-22); 2^-inf = 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace tc

@@ -3,10 +3,12 @@
 Port of ``repro/kernels/wkv6.py`` (Pallas ``wkv6``): per (b, h),
 ``out_t = r_tᵀ(S_{t−1} + diag(u) k_t v_tᵀ)`` and
 ``S_t = diag(e^{lw_t}) S_{t−1} + k_t v_tᵀ`` with an f32 Dh×Dh state,
-returning (out, final state).  The kernel runs the recurrence step by
-step, so it takes any T; ``chunk`` is accepted for the reference's
-signature and changes nothing but rounding (see the note at the top of
-the ``.cu`` file for the design and what bounds it).
+returning (out, final state).  bf16 inputs run the chunked form on the
+tensor cores at the kernel's own chunk of 64 steps, f32 inputs the step
+recurrence on the CUDA cores; both take any T, and ``chunk`` is accepted
+for the reference's signature and changes nothing but rounding (see the
+note at the top of the ``.cu`` file for the designs and what bounds
+them).
 
 Takes CUDA tensors only; ``ops`` sends CPU tensors to ``ref.wkv6_ref``.
 ``LAUNCHES`` counts kernel launches.
@@ -43,11 +45,12 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     u: (H, Dh); s0: (B, H, Dh, Dh).  Returns (out (B, H, T, Dh) in r's
     dtype, final state (B, H, Dh, Dh) f32).
 
-    r, k, v and lw may have any strides with a contiguous last dimension,
-    so (B, T, H, Dh) activations pass as ``.transpose(1, 2)`` views.  The
-    output is a (B, H, T, Dh) view of a (B, T, H, Dh) tensor.
+    r, k, v and lw may have any strides with a contiguous last dimension
+    (bf16: 16-byte aligned rows of r, k, v and lw), so (B, T, H, Dh)
+    activations pass as ``.transpose(1, 2)`` views.  The output is a
+    (B, H, T, Dh) view of a (B, T, H, Dh) tensor.
     """
-    del chunk                       # the recurrence needs no chunking
+    del chunk                       # the kernels pick their own
     for name, t in (("r", r), ("k", k), ("v", v), ("lw", lw), ("u", u),
                     ("s0", s0)):
         if not t.is_cuda or t.device != r.device:
@@ -75,6 +78,16 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"wkv6: u {tuple(u.shape)} / s0 {tuple(s0.shape)} "
                          f"do not match r {tuple(r.shape)}")
     lw = lw.float()
+    if r.dtype == torch.bfloat16:
+        # rows arrive in 16-byte pieces
+        for name, t in (("r", r), ("k", k), ("v", v), ("lw", lw)):
+            step = 16 // t.element_size()
+            if t.data_ptr() % 16 or any(
+                    st % step for st, n in zip(t.stride()[:-1],
+                                               t.shape[:-1]) if n > 1):
+                raise ValueError(f"wkv6: {name} needs a 16-byte aligned "
+                                 f"base and strides, got pointer "
+                                 f"{t.data_ptr():#x} strides {t.stride()}")
     u = u.float().contiguous()
     s0 = s0.float().contiguous()
     out = torch.empty((B, T, H, Dh), dtype=r.dtype,

@@ -42,7 +42,7 @@ def _cfgs(name, **over):
 def _carried(jcfg, tcfg, seed=3):
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(seed))
     tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jparams)
-    return jparams, params_from_numpy(tcfg, tree)
+    return jparams, params_from_numpy(tcfg, tree, device="cpu")
 
 
 def _tokens(x, n_bins):

@@ -79,6 +79,20 @@ def test_estep_fused(dev, Bx, B, N, K, d, spher):
     torch.testing.assert_close(lse, else_, rtol=ESTEP_TOL, atol=ESTEP_TOL)
 
 
+@pytest.mark.parametrize("tag", sorted(checks.ESTEP_CASES))
+def test_estep_fused_check_cases(dev, tag):
+    """The card checks' cases (``kernels.checks.ESTEP_CASES``): the path's
+    and the cohort's shapes, K over several component tiles, K = 1, ragged
+    N, K and d, spher."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    args = checks.estep_inputs(g, dev, *checks.ESTEP_CASES[tag])
+    lp, lse = GE.estep_fused(*args)
+    elp, else_ = ref.estep_fused_ref(*args)
+    torch.testing.assert_close(lp, elp, rtol=ESTEP_TOL, atol=ESTEP_TOL)
+    torch.testing.assert_close(lse, else_, rtol=ESTEP_TOL, atol=ESTEP_TOL)
+
+
 def test_estep(dev):
     x, mu, var, pi = (a[0] for a in _estep_inputs(2, 1, 1, 300, 10, 96,
                                                   False, dev))
@@ -174,6 +188,38 @@ def test_wkv6(dev, B, H, T, Dh, chunk, dtype, tol):
     assert out.dtype == dtype and sf.dtype == torch.float32
     torch.testing.assert_close(out, exp, rtol=tol, atol=tol)
     torch.testing.assert_close(sf, sf_exp, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("tag,dims,chunk,s0_scale,fill", checks.WKV6_BF16,
+                         ids=[c[0] for c in checks.WKV6_BF16])
+def test_wkv6_bf16_tensor_cores(dev, tag, dims, chunk, s0_scale, fill):
+    """The card checks' bf16 cases (``kernels.checks.WKV6_BF16``): the
+    path's shape, T = 200, lw ≡ −8 and lw ≡ 0."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(dims[2])
+    kw = {} if fill is None else {"lw_fill": fill}
+    args = checks.wkv6_inputs(g, dev, *dims, torch.bfloat16, s0_scale,
+                              model_like=tag == "main" or fill is not None,
+                              **kw)
+    out, sf = WKV.wkv6(*args, chunk=chunk)
+    exp, sf_exp = ref.wkv6_ref(*args, chunk=chunk)
+    assert out.dtype == torch.bfloat16 and sf.dtype == torch.float32
+    torch.testing.assert_close(out, exp, rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(sf, sf_exp, rtol=1e-2, atol=1e-2)
+
+
+def test_wkv6_refuses_misaligned_bf16_views(dev):
+    """r rows 68 elements (136 bytes) apart: not 16-byte pieces."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    r, k, v, lw, u, s0 = checks.wkv6_inputs(g, dev, 1, 2, 64, 64,
+                                            torch.bfloat16)
+    wide = torch.zeros(1, 2, 64, 68, device=dev, dtype=torch.bfloat16)
+    wide[..., :64] = r
+    before = WKV.LAUNCHES["wkv6"]
+    with pytest.raises(ValueError, match="16-byte"):
+        WKV.wkv6(wide[..., :64], k, v, lw, u, s0)
+    assert WKV.LAUNCHES["wkv6"] == before
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),

@@ -51,7 +51,8 @@ class TestFeaturesParity:
                            n_kv_heads=kv, head_dim=hd, d_ff=96,
                            frame_embed_dim=16, dtype=dtype)
         jparams = JM.init_params(jcfg, jax.random.PRNGKey(3))
-        tparams = params_from_numpy(tcfg, _numpy_tree(jparams))
+        tparams = params_from_numpy(tcfg, _numpy_tree(jparams),
+                                    device="cpu")
         frames = _frames(0, 3, 8, 16)
         exp = np.asarray(JM.features(jcfg, jparams, {"frames": frames}))
         got = M.features(tcfg, tparams, {"frames": frames}, device="cpu")
@@ -110,6 +111,18 @@ class TestFeaturesParity:
         cfg = FOUNDATION_STANDIN.reduced(n_layers=1, d_model=64)
         with pytest.raises(RuntimeError, match="CUDA"):
             M.init_params(cfg, torch.Generator())
+
+    def test_weight_conversion_needs_cuda_unless_cpu_is_asked(self):
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA card is present")
+        jcfg, tcfg = _cfgs(n_layers=1, d_model=64, n_heads=2, n_kv_heads=2,
+                           head_dim=32, d_ff=96, frame_embed_dim=16,
+                           dtype="float32")
+        tree = _numpy_tree(JM.init_params(jcfg, jax.random.PRNGKey(0)))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            params_from_numpy(tcfg, tree)
+        on_cpu = params_from_numpy(tcfg, tree, device="cpu")
+        assert on_cpu["blocks"]["wq"].device.type == "cpu"
 
 
 class TestDataIsBitIdentical:

@@ -42,7 +42,8 @@ def features():
     tcfg = ModelConfig(**dataclasses.asdict(jcfg))
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
     tparams = params_from_numpy(
-        tcfg, jax.tree.map(lambda a: np.asarray(a, np.float32), jparams))
+        tcfg, jax.tree.map(lambda a: np.asarray(a, np.float32), jparams),
+        device="cpu")
     dcfg = D.DatasetConfig(n_classes=4, n_per_class=60, input_dim=64,
                            class_sep=3.0)
     out = {}
