@@ -15,6 +15,13 @@ bf16 wire → the server's fused head → accuracy against the centralized
 oracle.  Launch counters, zeroed before each path and read after it, show
 that each path ran through its kernels and never through a plain version.
 
+On hubert-xlarge's features (no feature is extracted twice) six more
+paths run, each one line: full-covariance FedPFT (K = 1, the tril-packed
+wire, the server's peak memory), DP-FedPFT (Theorem 4.1), a Chain of the
+four clients, the streamed and pooled servers, the one-shot head
+baselines and FedAvg / FedYogi, and the Theorem 6.1 bound with the
+reconstruction attack.
+
 Prints one JSON object per line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
 script exits nonzero.  Without a CUDA card, or without the rest of the
@@ -435,9 +442,11 @@ PATHS = {
 }
 
 
-def main_path(torch, dev, card, name):
+def main_path(torch, dev, card, name, keep=None):
     """One FedPFT round with ``name``'s features, counted; then where its
-    time goes, and its features against the plain CPU path."""
+    time goes, and its features against the plain CPU path.  ``keep``, a
+    dict, receives the features, labels, raw inputs and the round's
+    ``comm_bytes`` for the paths that reuse them."""
     import dataclasses
     import gc
 
@@ -589,10 +598,262 @@ def main_path(torch, dev, card, name):
     check_close(torch, f"features of {name} (2 layers, card vs CPU plain "
                 "path)", on_card.cpu(), on_cpu, ATTN_TOL_BF16, n=2,
                 **cut, cpu_s=time.perf_counter() - t0)
+    if keep is not None:
+        keep.update(feats=feats, feats_t=feats_t, y=y_dev, yt=yt_dev, x=x,
+                    xt=xt, comm_fused=comm)
     del params, p2, feats, feats_t, clients, res, sess
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+GIB = 2 ** 30
+# the full_cov server phase's peak allocation above its start: the stack's
+# factors are 40 × 1280² f32 = 0.26 GB; a per-draw gather would be 53.7 GB
+FULL_COV_SERVER_BYTES = 2 * GIB
+
+
+def measured(torch, ops, fn):
+    """(fn(), wall s, launch counts, peak allocation above the start),
+    the counts zeroed and the peak reset just before ``fn``."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return out, dt, ops.launch_counts(), torch.cuda.max_memory_allocated() - m0
+
+
+def launch_fields(counts) -> dict:
+    plain = sum(v for k, v in counts.items() if k.startswith("plain_on"))
+    return {"estep_fused": counts["estep_fused"], "estep": counts["estep"],
+            "plain_on_cuda": plain}
+
+
+def slice_paths(torch, dev, card, kept):
+    """Full-covariance FedPFT, DP-FedPFT, Chain, the streamed and pooled
+    servers, the baselines, and Theorem 6.1 with the reconstruction
+    attack, on hubert-xlarge's full-depth features: 4 iid clients of
+    1000 × 1280, 1000 test rows, 10 classes.  Returns each path's launch
+    counts."""
+    import numpy as np
+
+    from repro_torch import data as D
+    from repro_torch.core import dp as DP
+    from repro_torch.core import fedpft as FP
+    from repro_torch.core import gmm as G
+    from repro_torch.core import head as H
+    from repro_torch.core import reconstruction as RA
+    from repro_torch.core import theory as T
+    from repro_torch.fl import api as A
+    from repro_torch.fl import baselines as B
+    from repro_torch.kernels import ops
+
+    feats, feats_t, y, yt = (kept[k] for k in ("feats", "feats_t", "y",
+                                               "yt"))
+    d, C = int(feats.shape[1]), 10
+    clients = [(feats[p], y[p]) for p in D.iid_shards(len(y), 4)]
+    g_eval = torch.Generator(device=dev)
+    g_eval.manual_seed(1)
+    out = {}
+
+    def central(cfg):
+        head_c, _ = FP.centralized_baseline(clients, C, cfg, seed=0)
+        ft = FP.maybe_normalize(feats_t, cfg)
+        return float(H.accuracy(head_c, ft, yt)), ft
+
+    def payload(messages):
+        return sum(len(m.payload) for m in messages)
+
+    def gmm_bytes(messages, cov_type, K):
+        return sum(G.comm_bytes(cov_type, d, K, len(m.header.present))
+                   for m in messages)
+
+    def check(cond, what):
+        if not cond:
+            raise AssertionError(what)
+
+    # ---- full_cov: K = 1 full covariance, normalized features, Star, fused
+    cfg = FP.FedPFTConfig(gmm=G.GMMConfig(1, "full"), normalize_features=True)
+    sess = FP.session_for(C, cfg)
+    res, dt, counts, peak = measured(torch, ops,
+                                     lambda: sess.run(clients, seed=0))
+    acc_c, ft_n = central(cfg)
+    acc = float(H.accuracy(res.model, ft_n, yt))
+    _, server_s, _, server_peak = measured(
+        torch, ops, lambda: sess.server_aggregate(
+            res.messages, generator=g_eval, device=dev))
+    comm, pay = res.info["comm_bytes"], payload(res.messages)
+    want = gmm_bytes(res.messages, "full", 1)
+    emit({"phase": "full_cov", "card": card, "phase_s": dt,
+          "round_phase_s": res.info["phase_s"], "acc": acc,
+          "acc_centralized": acc_c, "comm_bytes": comm, "payload_bytes": pay,
+          "expected_bytes": want,
+          "all_classes_everywhere": want == 4 * 10 * (1 + d + d * (d + 1)
+                                                      // 2) * 2,
+          "launches": launch_fields(counts), "peak_bytes": peak,
+          "server_s": server_s, "server_peak_above_start": server_peak})
+    check(comm == pay == want, f"full_cov: comm {comm}, payload {pay}, "
+          f"formula {want}")
+    check(acc >= acc_c - 0.08, f"full_cov: acc {acc} < {acc_c} − 0.08")
+    check(server_peak < FULL_COV_SERVER_BYTES,
+          f"full_cov: server peak {server_peak} B above its start")
+    check(launch_fields(counts)["plain_on_cuda"] == 0, "full_cov: plain ran")
+    check(torch.isfinite(res.model["w"]).all(), "full_cov: head not finite")
+    out["hubert-xlarge/full_cov"] = counts
+    f0, y0 = clients[0]
+    for part, fn in (
+            ("full_cov_client_fit_and_encode", lambda: sess.encode(
+                *sess.client_summary(f0, y0, 0, generator=g_eval,
+                                     device=dev))),
+            ("full_cov_server", lambda: sess.server_aggregate(
+                res.messages, generator=g_eval, device=dev))):
+        emit({"phase": "profile", "model": "hubert-xlarge", "part": part,
+              "card": card, **device_profile(torch, fn)})
+
+    # ---- dp: the same config through DP-FedPFT (Theorem 4.1)
+    dp_cfg = DP.DPConfig(epsilon=1.0, delta=1e-3)
+    (head, info), dt, counts, peak = measured(
+        torch, ops, lambda: DP.run_dp_fedpft(clients, C, cfg, dp_cfg, seed=0))
+    n_c = np.concatenate([m.counts for m in info["messages"]])
+    sigma = DP.noise_scale(np.maximum(n_c[n_c > 0], 1).astype(np.float64),
+                           dp_cfg.epsilon, dp_cfg.delta)
+    comm, pay = info["comm_bytes"], payload(info["messages"])
+    want = gmm_bytes(info["messages"], "full", 1)
+    finite = all(bool(torch.isfinite(v).all()) for v in head.values())
+    emit({"phase": "dp", "card": card, "phase_s": dt,
+          "acc": float(H.accuracy(head, ft_n, yt)), "acc_centralized": acc_c,
+          "sigma_per_class": [float(sigma.min()), float(sigma.max())],
+          "class_counts": [int(n_c.min()), int(n_c.max())],
+          "comm_bytes": comm, "payload_bytes": pay, "expected_bytes": want,
+          "head_finite": finite, "launches": launch_fields(counts),
+          "peak_bytes": peak})
+    check(finite, "dp: head not finite")
+    check(comm == pay == want, f"dp: comm {comm}, payload {pay}, {want}")
+    check(launch_fields(counts)["plain_on_cuda"] == 0, "dp: plain ran")
+    out["hubert-xlarge/dp"] = counts
+
+    # ---- chain: client 1 → 2 → 3 → 4, diag K = 10
+    gcfg = G.GMMConfig()
+    acc_c, _ = central(FP.FedPFTConfig())
+    sess = A.FedSession(n_classes=C, topology=A.Chain(),
+                        summarizer=A.GMMSummarizer(gcfg))
+    res, dt, counts, peak = measured(torch, ops,
+                                     lambda: sess.run(clients, seed=0))
+    accs = [float(H.accuracy(i["head"], feats_t, yt))
+            for i in res.info["per_client"]]
+    comm, pay = res.info["comm_bytes"], payload(res.messages)
+    # one batched EM a client: n_iter E-steps and the final log-likelihood
+    want_estep = len(clients) * (gcfg.n_iter + 1)
+    emit({"phase": "chain", "card": card, "phase_s": dt, "acc": accs[-1],
+          "acc_per_client": accs, "acc_centralized": acc_c,
+          "n_train": [i["n_train"] for i in res.info["per_client"]],
+          "comm_bytes": comm, "payload_bytes": pay,
+          "launches": launch_fields(counts),
+          "expected_estep_fused": want_estep, "peak_bytes": peak})
+    check(accs[-1] >= acc_c - 0.08, f"chain: acc {accs[-1]} < {acc_c} − 0.08")
+    check(comm == pay, f"chain: comm {comm} != payload {pay}")
+    check(counts["estep_fused"] == want_estep and counts["estep"] == 0,
+          f"chain: {counts['estep_fused']} E-steps, not {want_estep}")
+    check(launch_fields(counts)["plain_on_cuda"] == 0, "chain: plain ran")
+    out["hubert-xlarge/chain"] = counts
+
+    # ---- synthesis: the streamed and pooled servers, diag K = 10
+    pooled = None
+    for mode in ("streamed", "pooled"):
+        sess = A.FedSession(n_classes=C, summarizer=A.GMMSummarizer(gcfg),
+                            synthesis=mode)
+        res, dt, counts, peak = measured(torch, ops,
+                                         lambda: sess.run(clients, seed=0))
+        acc = float(H.accuracy(res.model, feats_t, yt))
+        comm, pay = res.info["comm_bytes"], payload(res.messages)
+        emit({"phase": "synthesis", "mode": mode, "card": card,
+              "phase_s": dt, "round_phase_s": res.info["phase_s"],
+              "acc": acc, "acc_centralized": acc_c, "comm_bytes": comm,
+              "payload_bytes": pay, "fused_comm_bytes": kept["comm_fused"],
+              "draws": res.info["synthesis_plans"][0].padded_draws,
+              "launches": launch_fields(counts), "peak_bytes": peak})
+        check(acc >= acc_c - 0.08, f"{mode}: acc {acc} < {acc_c} − 0.08")
+        check(comm == pay == kept["comm_fused"], f"{mode}: comm {comm}, "
+              f"payload {pay}, fused {kept['comm_fused']}")
+        check(counts["estep_fused"] == want_estep,
+              f"{mode}: {counts['estep_fused']} E-steps")
+        check(launch_fields(counts)["plain_on_cuda"] == 0, f"{mode}: plain")
+        check(res.info["synthesis"] == mode, f"{mode}: ran {res.info}")
+        out[f"hubert-xlarge/{mode}"] = counts
+        pooled = res
+
+    # ---- baselines: one-shot heads (AVG / Ensemble / FedBE), FedAvg, Yogi;
+    # at d = 1280: 4 × (10 × 1280 + 10) × 2 = 102,480 bytes one-shot and
+    # 2 × 4 × 25,620 × 10 = 2,049,600 over ten rounds
+    want = 4 * B.head_comm_bytes(d, C)
+    for agg in ("avg", "ensemble", "fedbe"):
+        sess = A.FedSession(n_classes=C, summarizer=A.HeadSummarizer(),
+                            aggregate=agg)
+        res, dt, counts, peak = measured(torch, ops,
+                                         lambda: sess.run(clients, seed=0))
+        heads = [res.model] if agg == "avg" else res.model
+        acc = float((B.ensemble_predict(heads, feats_t) == yt).float()
+                    .mean())
+        comm, pay = res.info["comm_bytes"], payload(res.messages)
+        emit({"phase": "baselines", "method": agg, "card": card,
+              "phase_s": dt, "acc": acc, "acc_centralized": acc_c,
+              "n_heads": len(heads), "comm_bytes": comm,
+              "payload_bytes": pay, "expected_bytes": want,
+              "launches": launch_fields(counts), "peak_bytes": peak})
+        check(comm == pay == want, f"{agg}: comm {comm}, payload {pay}")
+        check(launch_fields(counts)["plain_on_cuda"] == 0, f"{agg}: plain")
+    mcfg = B.MultiRoundConfig()
+    for server in ("avg", "yogi"):
+        (head, info), dt, counts, peak = measured(
+            torch, ops, lambda: B.fedavg(
+                clients, C, B.MultiRoundConfig(server=server), seed=0))
+        want_mr = 2 * 4 * B.head_comm_bytes(d, C) * mcfg.rounds
+        emit({"phase": "baselines", "method": f"fedavg/{server}",
+              "card": card, "phase_s": dt,
+              "acc": float(H.accuracy(head, feats_t, yt)),
+              "acc_centralized": acc_c, "comm_bytes": info["comm_bytes"],
+              "expected_bytes": want_mr, "launches": launch_fields(counts),
+              "peak_bytes": peak})
+        check(info["comm_bytes"] == want_mr,
+              f"fedavg/{server}: comm {info['comm_bytes']}")
+
+    # ---- theory_attack: Theorem 6.1 on the pooled run; the inversion
+    # attack fitted on the test split, aimed at the train split's inputs
+    def theory_attack():
+        sf = pooled.info["synthetic_feats"]
+        sl = pooled.info["synthetic_labels"]
+        loss_c, _ = H.classwise_01_loss(pooled.model, sf, sl, C)
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        H_c = torch.stack([T.entropy_knn(feats[y == c], generator=g)
+                           for c in range(C)])
+        n = torch.tensor(np.stack([m.counts for m in pooled.messages]),
+                         dtype=torch.float32, device=dev)
+        ll = torch.tensor([m.logliks for m in pooled.messages], device=dev)
+        L_EM = (n * ll).sum(0) / n.sum(0).clamp_min(1.0)
+        rhs = float(T.theorem61_bound(loss_c, H_c, L_EM, n.sum(0)))
+        lhs = 1.0 - float(H.accuracy(pooled.model, feats, y))
+        acfg = RA.AttackConfig()
+        atk = RA.fit_inversion(feats_t, torch.from_numpy(kept["xt"]), acfg)
+        target = torch.from_numpy(kept["x"])
+        return (lhs, rhs, H_c, L_EM,
+                RA.evaluate_attack(atk, feats, target, acfg),
+                RA.evaluate_attack(atk, sf, target, acfg))
+    (lhs, rhs, H_c, L_EM, m_raw, m_gmm), dt, counts, peak = measured(
+        torch, ops, theory_attack)
+    numbers = [lhs, rhs, *m_raw.values(), *m_gmm.values()]
+    emit({"phase": "theory_attack", "card": card, "phase_s": dt,
+          "lhs": lhs, "rhs": rhs, "entropy_knn": [float(v) for v in H_c],
+          "L_EM": [float(v) for v in L_EM], "attack_raw": m_raw,
+          "attack_gmm": m_gmm, "launches": launch_fields(counts),
+          "peak_bytes": peak})
+    check(all(math.isfinite(v) for v in numbers),
+          "theory_attack: a non-finite number")
+    return out
 
 
 def main() -> int:
@@ -623,7 +884,13 @@ def main() -> int:
                     for s, r in reports.items()}})
 
     kres = kernel_phase(torch, dev, card)
-    counts = {name: main_path(torch, dev, card, name) for name in PATHS}
+    counts = {}
+    for name in PATHS:
+        keep = {} if name == "hubert-xlarge" else None
+        counts[name] = main_path(torch, dev, card, name, keep)
+        if keep is not None:
+            counts.update(slice_paths(torch, dev, card, keep))
+            keep.clear()
 
     sources = {"estep_fused": ("src/repro_torch/kernels/csrc/gmm_estep.cu",
                                "src/repro/kernels/gmm_estep.py:177"),

@@ -4,9 +4,12 @@ A port of the JAX package ``repro`` (the reference), module for module:
 ``repro_torch.core.gmm`` answers to ``repro.core.gmm`` and so on.  The
 port never imports JAX or anything of ``repro``.
 
-Entry points (``fl.api.FedSession``, ``models.model.features``,
-``core.gmm.fit_classwise_gmms``, ``core.head.train_head_from_gmms``,
-``core.fedpft.run_fedpft``) run on ``cuda`` unless the caller passes
+Entry points (``fl.api.FedSession.run`` with any topology, synthesis mode
+or summarizer, ``models.model.features``, ``core.gmm.fit_classwise_gmms``,
+``core.head.train_head_from_gmms``, ``core.fedpft.run_fedpft`` and
+``client_update``, ``core.dp.run_dp_fedpft``,
+``core.decentralized.run_chain`` and ``chain_step``,
+``fl.baselines.fedavg``) run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU they raise instead of carrying on on the
 CPU (:func:`resolve_device`).
 """

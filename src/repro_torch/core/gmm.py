@@ -7,10 +7,13 @@ iteration — the hand-written CUDA kernel on the card, the plain version
 on the CPU.  Init and M-step are batched torch ops (the reference leaves
 them to XLA too).
 
-Covariance families: ``diag`` | ``spher``.  ``full`` waits for its slice
-(ROADMAP, port queue: full-covariance EM and the ``tril_pack`` wire).
+Covariance families: ``full`` | ``diag`` | ``spher``.  ``full`` has no
+kernel, in the reference as here (DESIGN §8): its E-step is a batched
+Cholesky and triangular solve, its M-step K batched products, its
+sampling factor a batched ``eigh`` — ``torch.linalg`` on the whole stack.
 
-    gmm = {"pi": (…, K), "mu": (…, K, d), "cov": (…, K, d) | (…, K)}
+    gmm = {"pi": (…, K), "mu": (…, K, d), "cov": (…, K, d, d) | (…, K, d)
+           | (…, K)}
 
 Random draws come from an explicit ``torch.Generator``, or are passed in
 as tensors (``init_idx``, ``jitter``) so tests can feed both packages the
@@ -31,8 +34,6 @@ from repro_torch.kernels import ops
 
 COV_TYPES = ("full", "diag", "spher")
 _LOG2PI = math.log(2.0 * math.pi)
-_FULL_COV = ("cov_type='full' waits for its slice (ROADMAP, port queue: "
-             "full-covariance EM and the tril_pack wire)")
 
 Device = Optional[Union[str, torch.device]]
 
@@ -50,11 +51,6 @@ class GMMConfig:
             raise ValueError(f"GMMConfig: unknown cov_type {self.cov_type!r}")
 
 
-def _no_full(cov_type: str) -> None:
-    if cov_type == "full":
-        raise NotImplementedError(_FULL_COV)
-
-
 def _one_hot(labels: torch.Tensor, n_classes: int) -> torch.Tensor:
     """f32 one-hot where label −1 (padding rows) maps to all zeros, as
     ``jax.nn.one_hot`` does; ``torch.nn.functional.one_hot`` raises."""
@@ -67,14 +63,38 @@ def _one_hot(labels: torch.Tensor, n_classes: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _cholesky(cov: torch.Tensor) -> torch.Tensor:
+    """Batched lower Cholesky factor.  Where a matrix is not positive
+    definite the factor is NaN, as ``jnp.linalg.cholesky`` returns it;
+    ``torch.linalg.cholesky`` would raise instead."""
+    chol, info = torch.linalg.cholesky_ex(cov)
+    return torch.where((info != 0)[..., None, None],
+                       torch.full_like(chol, float("nan")), chol)
+
+
+def _full_log_prob(x: torch.Tensor, mu: torch.Tensor,
+                   cov: torch.Tensor) -> torch.Tensor:
+    """log N(x | mu_k, Σ_k) for full Σ over any leading batch:
+    x (…, N, d), mu (…, K, d), cov (…, K, d, d) → (…, N, K)."""
+    d = x.shape[-1]
+    chol = _cholesky(cov)                                     # (…, K, d, d)
+    diff = x.unsqueeze(-3) - mu.unsqueeze(-2)                 # (…, K, N, d)
+    sol = torch.linalg.solve_triangular(chol, diff.transpose(-1, -2),
+                                        upper=False)          # (…, K, d, N)
+    maha = sol.square().sum(-2).transpose(-1, -2)             # (…, N, K)
+    logdet = 2.0 * chol.diagonal(dim1=-2, dim2=-1).log().sum(-1)
+    return -0.5 * (d * _LOG2PI + logdet.unsqueeze(-2) + maha)
+
+
 def log_prob_components(x: torch.Tensor, gmm: Dict,
                         cov_type: str) -> torch.Tensor:
     """log N(x_n | mu_k, Sigma_k): (N, d) → (N, K), f32."""
-    _no_full(cov_type)
     x = x.float()
     mu = gmm["mu"].float()
     cov = gmm["cov"].float()
     d = x.shape[-1]
+    if cov_type == "full":
+        return _full_log_prob(x, mu, cov)
     if cov_type == "diag":
         inv = 1.0 / cov
         maha = (x.square() @ inv.T - 2.0 * (x @ (mu * inv).T)
@@ -87,11 +107,17 @@ def log_prob_components(x: torch.Tensor, gmm: Dict,
     return -0.5 * (d * _LOG2PI + logdet[None] + maha)
 
 
+def _log_pi(pi: torch.Tensor) -> torch.Tensor:
+    return pi.float().clamp_min(1e-20).log()
+
+
 def log_prob(x: torch.Tensor, gmm: Dict, cov_type: str) -> torch.Tensor:
-    """Mixture log-density (N, d) → (N,): the row logsumexp of the E-step
-    numerators, which ``ops.gmm_estep`` (the single-fit kernel on the
-    card) computes with log π folded in."""
-    _no_full(cov_type)
+    """Mixture log-density (N, d) → (N,).  diag/spher: the row logsumexp
+    of the E-step numerators, which ``ops.gmm_estep`` (the single-fit
+    kernel on the card) computes with log π folded in; full: Cholesky."""
+    if cov_type == "full":
+        comp = log_prob_components(x, gmm, cov_type)
+        return torch.logsumexp(comp + _log_pi(gmm["pi"])[None], dim=-1)
     return torch.logsumexp(ops.gmm_estep(x, gmm["mu"], gmm["cov"],
                                          gmm["pi"]), dim=-1)
 
@@ -162,6 +188,8 @@ def _global_cov(x, weights, cfg: GMMConfig):
     var = (torch.einsum("brn,brnd->brd", _group(weights, Bx), diff.square())
            .reshape(B, d) / wsum[:, None] + cfg.reg)
     K = cfg.n_components
+    if cfg.cov_type == "full":
+        return torch.diag_embed(var)[:, None].expand(B, K, d, d).contiguous()
     if cfg.cov_type == "diag":
         return var[:, None].expand(B, K, d).contiguous()
     return var.mean(-1, keepdim=True).expand(B, K).contiguous()
@@ -179,7 +207,18 @@ def _m_step(x, xsq, resp, cfg: GMMConfig) -> Dict:
     pi = nk / nk.sum(-1, keepdim=True).clamp_min(1e-12)
     nk_safe = nk.clamp_min(1e-12)[..., None]
     mu = _wsum_rows(resp, x) / nk_safe
-    if cfg.cov_type == "diag":
+    if cfg.cov_type == "full":
+        # Σ_k = E[xxᵀ] − μμᵀ: K batched products (resp_k ⊙ x)ᵀ·x on the
+        # shared blocks, never an (N, K, d, d) intermediate
+        Bx = x.shape[0]
+        xx = torch.stack([
+            torch.matmul((_group(resp[..., k], Bx)[..., None]
+                          * x[:, None]).transpose(-1, -2), x[:, None])
+            .reshape(resp.shape[0], d, d) for k in range(resp.shape[-1])],
+            dim=1)                                            # (B, K, d, d)
+        cov = xx / nk_safe[..., None] - mu[..., :, None] * mu[..., None, :]
+        cov = cov + cfg.reg * torch.eye(d, device=x.device)
+    elif cfg.cov_type == "diag":
         cov = _wsum_rows(resp, xsq) / nk_safe - mu.square() + cfg.reg
     else:
         rowsq = _group(resp, x.shape[0]) \
@@ -190,9 +229,17 @@ def _m_step(x, xsq, resp, cfg: GMMConfig) -> Dict:
 
 
 def _estep_lr(x, gmm, cov_type: str):
-    """Log-numerators lr (B, N, K) + row logsumexp (B, N): one fused E-step
-    for every fit, on the compact shared-x block x (Bx, N, d)."""
-    _no_full(cov_type)
+    """Log-numerators lr (B, N, K) + row logsumexp (B, N) on the compact
+    shared-x block x (Bx, N, d).  diag/spher: one fused E-step kernel for
+    every fit.  full: the batched Cholesky path, each fit against its own
+    block (broadcast, not copied)."""
+    if cov_type == "full":
+        Bx = x.shape[0]
+        comp = _full_log_prob(x[:, None], _group(gmm["mu"], Bx),
+                              _group(gmm["cov"], Bx))         # (Bx,r,N,K)
+        lr = comp.reshape((-1,) + tuple(comp.shape[2:])) \
+            + _log_pi(gmm["pi"])[:, None, :]
+        return lr, torch.logsumexp(lr, dim=-1)
     return ops.gmm_estep_fused(x, gmm["mu"], gmm["cov"], gmm["pi"])
 
 
@@ -211,7 +258,6 @@ def fit_gmm_batch(x: torch.Tensor, weights: torch.Tensor, cfg: GMMConfig, *,
     and ``jitter`` (B, K, d) are given.  Returns (gmms stacked (B, …),
     mean log-likelihoods (B,)).
     """
-    _no_full(cfg.cov_type)
     if weights.dim() != 2:
         raise ValueError(f"fit_gmm_batch: weights must be (B, N), got "
                          f"{tuple(weights.shape)}")
@@ -312,18 +358,70 @@ def fit_classwise_gmms(feats: torch.Tensor, labels: torch.Tensor,
 
 
 def sampling_factor(cov: torch.Tensor, cov_type: str) -> torch.Tensor:
-    """F with F·Fᵀ = Proj_PSD(Σ): diag/spher clamp at 0 and take √."""
-    _no_full(cov_type)
-    return cov.float().clamp_min(0.0).sqrt()
+    """F with F·Fᵀ = Proj_PSD(Σ).  full: the clamped ``eigh`` factor
+    U·√λ₊ over the whole (…, K, d, d) stack — it samples N(0, Proj_PSD(Σ))
+    exactly and never NaNs where wire rounding or DP noise left Σ slightly
+    non-PSD; diag/spher clamp at 0 and take √."""
+    cf = cov.float()
+    if cov_type == "full":
+        evals, evecs = torch.linalg.eigh(cf)
+        return evecs.mul_(evals.clamp_min(0.0).sqrt()[..., None, :]) \
+            .contiguous()
+    return cf.clamp_min(0.0).sqrt()
 
 
 def colored_noise(fac: torch.Tensor, eps: torch.Tensor,
                   cov_type: str) -> torch.Tensor:
-    """Standard-normal eps (…, d) → draw with covariance fac·facᵀ."""
-    _no_full(cov_type)
+    """Standard-normal eps (…, d) → draw with covariance fac·facᵀ, ``fac``
+    already gathered to eps's batch: full (…, d, d), diag (…, d), spher
+    (…,).  For full covariance at scale use :func:`factor_noise`, which
+    never gathers a d × d factor per draw."""
+    if cov_type == "full":
+        return torch.einsum("...de,...e->...d", fac, eps)
     if cov_type == "diag":
         return fac * eps
     return fac[..., None] * eps
+
+
+def _grouped_full_noise(fac: torch.Tensor, ids: torch.Tensor,
+                        eps: torch.Tensor) -> torch.Tensor:
+    """F[ids]·eps for full factors, grouped by id: the draws of each id
+    used are gathered into one padded block and multiplied by that id's
+    Fᵀ in one batched product, then scattered back.  The same draws give
+    the gathered form's numbers up to summation order, and the memory is
+    O(ids used · d² + draws · d), not O(draws · d²)."""
+    shape = eps.shape
+    d = shape[-1]
+    ids = ids.reshape(-1)
+    eps = eps.reshape(-1, d).float()
+    n = ids.shape[0]
+    if n == 0:
+        return eps.reshape(shape)
+    uniq, inv, cnt = torch.unique(ids, sorted=True, return_inverse=True,
+                                  return_counts=True)
+    order = torch.argsort(inv, stable=True)
+    grp = inv[order]
+    rank = torch.arange(n, device=eps.device) - (torch.cumsum(cnt, 0)
+                                                 - cnt)[grp]
+    block = eps.new_zeros((uniq.shape[0], int(cnt.max()), d))
+    block[grp, rank] = eps[order]
+    f = fac if uniq.shape[0] == fac.shape[0] else fac.index_select(0, uniq)
+    prod = torch.bmm(block, f.transpose(1, 2))                # rows (F·ε)ᵀ
+    out = torch.empty_like(eps)
+    out[order] = prod[grp, rank]
+    return out.reshape(shape)
+
+
+def factor_noise(fac: torch.Tensor, ids: torch.Tensor, eps: torch.Tensor,
+                 cov_type: str) -> torch.Tensor:
+    """``F[ids]·eps`` for a flat (P, …) factor stack, ids of any shape and
+    eps (ids.shape, d).  diag/spher gather; full groups the draws by id
+    (:func:`_grouped_full_noise`) instead of gathering a d × d factor per
+    draw — at d = 1280 the gathered form of one (32, 256) noise window
+    would be 53.7 GB."""
+    if cov_type == "full":
+        return _grouped_full_noise(fac, ids, eps)
+    return colored_noise(fac[ids], eps, cov_type)
 
 
 def draw_slots(u: torch.Tensor, cum_mass: torch.Tensor) -> torch.Tensor:
@@ -334,15 +432,46 @@ def draw_slots(u: torch.Tensor, cum_mass: torch.Tensor) -> torch.Tensor:
 
 
 def slot_gaussian(slot, comp, eps, mu, fac, cov_type: str) -> torch.Tensor:
-    """``mu[slot, comp] + F[slot, comp]·eps`` for any leading batch shape."""
-    return mu[slot, comp].float() + colored_noise(fac[slot, comp], eps,
-                                                  cov_type)
+    """``mu[slot, comp] + F[slot, comp]·eps`` for any leading batch shape;
+    ``fac`` (G, K, …) is :func:`sampling_factor` output."""
+    K = mu.shape[1]
+    flat = fac.reshape((-1,) + tuple(fac.shape[2:]))
+    return mu[slot, comp].float() + factor_noise(flat, slot * K + comp, eps,
+                                                 cov_type)
+
+
+def sample_slot_minibatch(cum_mass, pi, mu, fac, slot_labels, n: int,
+                          cov_type: str, *,
+                          generator: Optional[torch.Generator] = None,
+                          draws: Optional[Dict[str, torch.Tensor]] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One synthetic minibatch straight from a flat (G, K, …) slot stack:
+    slot ∝ counts via ``cum_mass``, component ∝ pi, Gaussian through the
+    precomputed ``fac``.  ``draws`` replaces the draws: ``u`` (n,)
+    uniforms, ``comp`` (n,), ``eps`` (n, d).  Returns (x (n, d), y (n,))."""
+    dev = mu.device
+    if draws is None:
+        slot = draw_slots(torch.rand((n,), generator=generator, device=dev),
+                          cum_mass)
+        comp = torch.multinomial(pi.float().clamp_min(1e-20)[slot], 1,
+                                 generator=generator)[:, 0]
+        eps = torch.randn((n, mu.shape[-1]), generator=generator,
+                          device=dev, dtype=torch.float32)
+    else:
+        slot = draw_slots(draws["u"].to(dev), cum_mass)
+        comp = draws["comp"].to(dev).long()
+        eps = draws["eps"].to(dev, torch.float32)
+    return (slot_gaussian(slot, comp, eps, mu, fac, cov_type),
+            slot_labels[slot])
 
 
 def identity_gmm(K: int, d: int, cov_type: str) -> Dict[str, np.ndarray]:
-    """Inert padding mixture: uniform pi, zero means, unit covariance."""
-    _no_full(cov_type)
-    if cov_type == "diag":
+    """Inert padding mixture: uniform pi, zero means, unit covariance —
+    safe under every sampler primitive.  Pad rows carry draw count 0, so
+    the fused head never selects them (DESIGN §11)."""
+    if cov_type == "full":
+        cov = np.tile(np.eye(d, dtype=np.float32)[None], (K, 1, 1))
+    elif cov_type == "diag":
         cov = np.ones((K, d), np.float32)
     elif cov_type == "spher":
         cov = np.ones((K,), np.float32)
@@ -351,6 +480,27 @@ def identity_gmm(K: int, d: int, cov_type: str) -> Dict[str, np.ndarray]:
                          f"choose one of {COV_TYPES}")
     return {"pi": np.full((K,), 1.0 / K, np.float32),
             "mu": np.zeros((K, d), np.float32), "cov": cov}
+
+
+def sample(gmm: Dict, n: int, cov_type: str, *,
+           generator: Optional[torch.Generator] = None,
+           comp: Optional[torch.Tensor] = None,
+           eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """n draws from one mixture → (n, d); runs where ``gmm["mu"]`` lies.
+    ``comp`` (n,) and ``eps`` (n, d) replace the draws."""
+    mu = torch.as_tensor(gmm["mu"]).float()
+    dev = mu.device
+    if comp is None:
+        pi = torch.as_tensor(gmm["pi"]).float().clamp_min(1e-20)
+        comp = torch.multinomial(pi, n, replacement=True,
+                                 generator=generator)
+    if eps is None:
+        eps = torch.randn((n, mu.shape[-1]), generator=generator,
+                          device=dev, dtype=torch.float32)
+    comp = comp.to(dev).long()
+    fac = sampling_factor(torch.as_tensor(gmm["cov"]).to(dev), cov_type)
+    return mu[comp] + factor_noise(fac, comp, eps.to(dev, torch.float32),
+                                   cov_type)
 
 
 # ---------------------------------------------------------------------------
@@ -394,3 +544,55 @@ def nonfinite_fields(params, fields: Tuple[str, ...] = WIRE_FIELDS):
     return [f for f in fields
             if not np.isfinite(np.asarray(torch.as_tensor(params[f])
                                           .detach().float().cpu())).all()]
+
+
+def tril_pack(cov):
+    """Row-major lower-triangle packing (…, d, d) → (…, d·(d+1)/2): THE
+    wire layout of full covariances (``np.tril_indices`` order).  numpy in
+    → numpy out, tensor in → tensor out."""
+    d = cov.shape[-1]
+    i, j = np.tril_indices(d)
+    if isinstance(cov, np.ndarray):
+        return cov[..., i, j]
+    return cov[..., torch.as_tensor(i, device=cov.device),
+               torch.as_tensor(j, device=cov.device)]
+
+
+def tril_unpack(packed, d: int):
+    """Inverse of :func:`tril_pack`: the symmetric (…, d, d) f32 matrix
+    from its row-major lower triangle.  numpy in → numpy out, tensor in →
+    tensor out."""
+    i, j = np.tril_indices(d)
+    if isinstance(packed, np.ndarray):
+        cov = np.zeros(packed.shape[:-1] + (d, d), np.float32)
+        cov[..., i, j] = packed
+        sym = cov + np.swapaxes(cov, -1, -2)
+        diag = np.arange(d)
+        sym[..., diag, diag] = cov[..., diag, diag]
+        return sym
+    ti = torch.as_tensor(i, device=packed.device)
+    tj = torch.as_tensor(j, device=packed.device)
+    cov = packed.new_zeros(tuple(packed.shape[:-1]) + (d, d),
+                           dtype=torch.float32)
+    cov[..., ti, tj] = packed.float()
+    return cov + cov.transpose(-1, -2) \
+        - torch.diag_embed(cov.diagonal(dim1=-2, dim2=-1))
+
+
+def pack_wire(gmm: Dict, cov_type: str) -> Dict:
+    """bf16 wire-format dict, full covariances tril-packed."""
+    cov = gmm["cov"]
+    if cov_type == "full":
+        cov = tril_pack(cov)
+    return {"pi": gmm["pi"].to(torch.bfloat16),
+            "mu": gmm["mu"].to(torch.bfloat16),
+            "cov": cov.to(torch.bfloat16)}
+
+
+def unpack_wire(packed: Dict, cov_type: str, d: int) -> Dict:
+    out = {"pi": packed["pi"].float(), "mu": packed["mu"].float()}
+    if cov_type == "full":
+        out["cov"] = tril_unpack(packed["cov"], d)
+    else:
+        out["cov"] = packed["cov"].float()
+    return out

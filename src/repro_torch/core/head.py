@@ -1,11 +1,12 @@
 """Linear classifier head over features (port of ``repro/core/head.py``).
 
 The head ``h`` of the paper's ``w = h ∘ f`` is a (d, C) linear layer
-trained with Adam + cross-entropy, either on real features (the
-centralized oracle, :func:`train_head`) or straight from the decoded
-mixture-slot stack (:func:`train_head_from_gmms`): every step draws its
-minibatch from the mixtures, so the pooled synthetic set never exists.
-The head is tiny, so its gradient is plain autograd.
+trained with Adam + cross-entropy, on a materialized pool of real or
+synthetic features (:func:`train_head`), on the planner's synthetic
+chunks without pooling them (:func:`train_head_streaming`), or straight
+from the decoded mixture-slot stack (:func:`train_head_from_gmms`): every
+step draws its minibatch from the mixtures, so the pooled synthetic set
+never exists.  The head is tiny, so its gradient is plain autograd.
 
 Random draws come from an explicit ``torch.Generator`` or are passed in
 as tensors (``draws``), so tests can feed the reference's draws to both.
@@ -114,6 +115,89 @@ def train_head(feats: torch.Tensor, labels: torch.Tensor, n_classes: int,
     return params, _stack(losses, dev)
 
 
+# round-robin passes over the chunk list in train_head_streaming: bounds
+# the gap between two visits to the same chunk by ≈ n_steps/_INTERLEAVE
+_INTERLEAVE = 4
+
+
+def _streaming_segment(params: Params, opt_state, opt, feats, labels, idx,
+                       bs: int):
+    """The steps of one chunk's segment: each minibatch is ``bs`` rows of
+    the chunk (padded past a short chunk with weight-0 rows)."""
+    w = (torch.arange(bs, device=feats.device)
+         < min(bs, feats.shape[0])).float()
+    losses = []
+    for rows in idx:
+        params, opt_state, loss = _adam_step(params, opt_state, opt,
+                                             feats[rows], labels[rows], w)
+        losses.append(loss)
+    return params, opt_state, losses
+
+
+@torch.no_grad()
+def train_head_streaming(chunks, n_classes: int, cfg: HeadConfig, *,
+                         generator: Optional[torch.Generator] = None,
+                         draws: Optional[Dict[str, torch.Tensor]] = None
+                         ) -> Tuple[Params, torch.Tensor]:
+    """Train a head over (feats, labels) chunks without pooling them; runs
+    where the chunks lie.
+
+    Steps go to chunks ∝ row count (largest remainder of
+    ``n_steps·size/Σsize``), each minibatch drawn uniformly within its
+    chunk; each chunk's steps are split into ``_INTERLEAVE`` segments run
+    round-robin over the chunks, so a class living in one small chunk is
+    revisited every ≈ ``n_steps/_INTERLEAVE`` steps.  Optimizer state
+    carries across segments; losses come back in execution order.
+    ``draws`` replaces the draws: ``init`` (d, C) and ``idx`` (n_steps,
+    batch_size), row t the rows of the t-th step in allocation order
+    (chunk by chunk).  A chunk list with no rows returns the initialized
+    head and no losses.
+    """
+    if not chunks:
+        raise ValueError("train_head_streaming needs at least one chunk "
+                         "(the feature dim is unknowable from [])")
+    d, dev = int(chunks[0][0].shape[1]), chunks[0][0].device
+    chunks = [(f.float(), y) for f, y in chunks if int(f.shape[0]) > 0]
+    dims = sorted({int(f.shape[1]) for f, _ in chunks})
+    if len(dims) > 1:
+        raise ValueError(
+            f"train_head_streaming: chunks disagree on the feature dim "
+            f"(saw d ∈ {dims}) — one head cannot train over mixed feature "
+            "spaces; synthesize each cohort group separately")
+    d = dims[0] if dims else d
+    init = None if draws is None else draws["init"]
+    params = init_head(d, n_classes, generator=generator, normal=init,
+                       device=dev)
+    if not chunks:
+        return params, _stack([], dev)
+    sizes = np.asarray([int(f.shape[0]) for f, _ in chunks], np.float64)
+    raw = sizes / sizes.sum() * cfg.n_steps
+    n_per = np.floor(raw).astype(np.int64)
+    short = cfg.n_steps - int(n_per.sum())
+    if short:
+        n_per[np.argsort(-(raw - np.floor(raw)))[:short]] += 1
+    offsets = np.concatenate([[0], np.cumsum(n_per)])
+    bs = cfg.batch_size
+    opt = optim.adam(cfg.lr, weight_decay=cfg.weight_decay)
+    opt_state = opt.init(params)
+    losses = []
+    for r in range(_INTERLEAVE):
+        for j, (f, y) in enumerate(chunks):
+            lo = int(offsets[j]) + int(n_per[j] * r // _INTERLEAVE)
+            hi = int(offsets[j]) + int(n_per[j] * (r + 1) // _INTERLEAVE)
+            if hi == lo:
+                continue
+            if draws is None:
+                idx = torch.randint(0, f.shape[0], (hi - lo, bs),
+                                    generator=generator, device=dev)
+            else:
+                idx = draws["idx"][lo:hi].to(dev).long()
+            params, opt_state, seg = _streaming_segment(
+                params, opt_state, opt, f, y.to(dev), idx, bs)
+            losses += seg
+    return params, _stack(losses, dev)
+
+
 @torch.no_grad()
 def fused_gmm_steps(pi, mu, cov, slot_labels, counts, n_classes: int,
                     cfg: HeadConfig, cov_type: str, *,
@@ -123,7 +207,9 @@ def fused_gmm_steps(pi, mu, cov, slot_labels, counts, n_classes: int,
     """The server phase: Adam steps whose minibatches are drawn from the
     flat (G, K, …) slot stack — slot ∝ counts, component ∝ pi, Gaussian
     through the sampling factor — with the noise drawn ``noise_window``
-    steps at a time.  Runs where ``mu`` lies.
+    steps at a time.  Runs where ``mu`` lies.  Full covariance groups each
+    window's draws by (slot, component) (``gmm.factor_noise``): memory
+    O(window·batch·d + slot stack), never a d × d factor per draw.
 
     ``draws`` replaces every draw: ``init`` (d, C), ``slot_all`` and
     ``comp_all`` (n_steps·batch,), ``eps`` (n_steps, batch, d).
@@ -207,7 +293,24 @@ def train_head_from_gmms(pi, mu, cov, slot_labels, counts, n_classes: int,
                            cov_type, generator=generator, draws=draws)
 
 
-def accuracy(params: Params, feats: torch.Tensor,
-             labels: torch.Tensor) -> torch.Tensor:
+def accuracy(params: Params, feats: torch.Tensor, labels: torch.Tensor,
+             weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     pred = head_logits(params, feats).argmax(-1)
-    return (pred == labels.to(pred.device)).float().mean()
+    hit = (pred == labels.to(pred.device)).float()
+    if weights is None:
+        return hit.mean()
+    weights = weights.to(hit.device).float()
+    return (hit * weights).sum() / weights.sum().clamp_min(1e-9)
+
+
+def classwise_01_loss(params: Params, feats: torch.Tensor,
+                      labels: torch.Tensor, n_classes: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-class 0-1 loss and class counts, (C,) each (Theorem 6.1)."""
+    pred = head_logits(params, feats).argmax(-1)
+    labels = labels.to(pred.device).long()
+    miss = (pred != labels).float()
+    onehot = (labels[:, None] == torch.arange(n_classes,
+                                              device=pred.device)).float()
+    cnt = onehot.sum(0)
+    return (miss @ onehot) / cnt.clamp_min(1.0), cnt

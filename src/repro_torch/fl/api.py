@@ -1,46 +1,72 @@
-"""Federation API, host ``Star`` path (port of ``repro/fl/api.py``).
+"""Federation API (port of ``repro/fl/api.py``).
 
-A :class:`FedSession` composes a summarizer (per-class GMMs), a wire codec
-(a real quantize → bytes → dequantize round trip, so ``comm_bytes ==
-len(payload)`` and the server computes on the decoded parameters) and the
-``Star`` topology (clients → server, one shot).  The server trains the
-head straight from the decoded mixture-slot stack
-(``core.head.train_head_from_gmms``, ``synthesis="fused"``).
+A :class:`FedSession` composes four pieces: a summarizer (per-class GMMs,
+or locally trained heads for the one-shot baselines), a wire codec (a
+real quantize → bytes → dequantize round trip, so ``comm_bytes ==
+len(payload)`` and the server computes on the decoded parameters), a
+topology (``Star``: clients → server; ``Chain``: client i → i + 1, §4.2;
+``Ring``: a chain with wraparound laps) and an optional DP hook applied
+to the summary before encoding (Theorem 4.1).
+
+The server trains the head straight from the decoded mixture-slot stack
+by default (``synthesis="fused"``, ``core.head.train_head_from_gmms``).
+``"streamed"`` materializes the count-stratified planner's buckets as
+chunks (:func:`synthesize_chunks`) and streams them into
+``core.head.train_head_streaming``; ``"pooled"`` concatenates them and
+trains on the pool.  A cohort of mixed K or covariance family cannot
+stack into one slot tensor and falls back to ``"pooled"``.  Head
+messages are aggregated instead (``aggregate="avg" | "ensemble" |
+"fedbe"``).
 
 The wire is byte-identical to the reference's: present-class subsetting,
-round-to-nearest-even into the codec dtype, fields in ``gmm.WIRE_FIELDS``
-order.  bf16 rounding goes through ``torch`` (``.to(torch.bfloat16)`` is
-round-to-nearest-even, as ``ml_dtypes`` is).
+full covariances as their row-major lower triangle, round-to-nearest-even
+into the codec dtype, fields in ``gmm.WIRE_FIELDS`` order.  bf16 rounding
+goes through ``torch`` (``.to(torch.bfloat16)`` is round-to-nearest-even,
+as ``ml_dtypes`` is).
+
+Draws come from one ``torch.Generator`` per run; every sampling function
+also takes its draws as tensors (JAX's threefry and torch's Philox never
+match stream for stream), so tests can feed the reference's.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: streaming ingest, the round-program cache, resilience, DP,
-mesh execution, Chain/Ring, streamed/pooled synthesis, head summaries
-and head aggregation.
+ROADMAP item: streaming ingest and the round-program cache (item 4),
+resilience (item 5), mesh execution (item 9).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import dp as DP
 from repro_torch.core import gmm as G
 from repro_torch.core import head as H
+from repro_torch.fl import baselines as FB
 from repro_torch.fl import planner as P
 
 __all__ = [
-    "QuantizedCodec", "WireHeader", "ClientMessage", "GMMSummarizer", "Star",
-    "FedSession", "SessionResult", "encode_message", "decode_payload",
-    "stack_messages", "fused_slot_stack",
+    "QuantizedCodec", "WireHeader", "ClientMessage", "GMMSummarizer",
+    "HeadSummarizer", "Star", "Chain", "Ring", "FedSession", "SessionResult",
+    "SYNTHESIS_MODES", "encode_message", "decode_payload", "stack_messages",
+    "fused_slot_stack", "synthesize_batched", "synthesize_chunks",
+    "synthesize_group_chunks", "synthesize_groups", "synthesize_looped",
 ]
 
+SYNTHESIS_MODES = ("fused", "streamed", "pooled")
 _WIRE_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
                 "float32": torch.float32}
 _GMM_FIELDS = G.WIRE_FIELDS
+_HEAD_FIELDS = ("w", "b")
 _LATER = "waits for its slice (ROADMAP, port queue: {})"
+_MESH_ITEM = "item 9, mesh, launch and analysis"
+
+# a bucket's draws: (its global slot ids, its padded S) → {"comp": (G_b, S),
+# "eps": (G_b, S, d)}
+DrawFn = Callable[[np.ndarray, int], Dict[str, torch.Tensor]]
 
 
 def _later(what: str, item: str) -> NotImplementedError:
@@ -136,32 +162,52 @@ class WireHeader:
 
 
 def _gmm_shapes(cov_type: str, Cp: int, K: int, d: int):
-    if cov_type == "full":
-        raise _later("the full-covariance tril_pack wire",
-                     "full-covariance EM and the tril_pack wire")
+    """Wire shapes of ``Cp`` present classes (full covs tril-packed)."""
     return {"pi": (Cp, K), "mu": (Cp, K, d),
             "cov": (Cp,) + G.packed_cov_shape(cov_type, K, d)}
 
 
+def _pack_cov(cov: torch.Tensor, cov_type: str) -> torch.Tensor:
+    """(…, d, d) full covariances → their row-major lower triangle
+    (``gmm.tril_pack``) where they lie, so only the packed half crosses
+    to the host; other families pass."""
+    return G.tril_pack(cov) if cov_type == "full" else cov
+
+
+def _unpack_cov(packed: torch.Tensor, cov_type: str, d: int) -> torch.Tensor:
+    return G.tril_unpack(packed, d) if cov_type == "full" else packed
+
+
+def _cov_shape(cov_type: str, K: int, d: int) -> Tuple[int, ...]:
+    """One class's decoded cov shape."""
+    return {"full": (K, d, d), "diag": (K, d), "spher": (K,)}[cov_type]
+
+
 def _scatter_present(sub: Dict[str, np.ndarray], present, C: int, K: int,
-                     d: int, cov_shape) -> Dict[str, np.ndarray]:
-    """Present-class rows back into the (C, …) stack; absent classes get
-    the placeholder pi = 1/K, zero mu and zero cov."""
-    out = {"pi": np.full((C, K), 1.0 / K, np.float32),
-           "mu": np.zeros((C, K, d), np.float32),
-           "cov": np.zeros((C,) + tuple(cov_shape), np.float32)}
+                     d: int, cov_type: str,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    """Present-class rows back into the (C, …) stack on ``device``, full
+    covariances unpacked there; absent classes get the placeholder
+    pi = 1/K, zero mu and zero cov."""
+    out = {"pi": torch.full((C, K), 1.0 / K, device=device),
+           "mu": torch.zeros((C, K, d), device=device),
+           "cov": torch.zeros((C,) + _cov_shape(cov_type, K, d),
+                              device=device)}
+    rows = torch.as_tensor(present, device=device)
     for f in _GMM_FIELDS:
-        out[f][present] = sub[f]
+        val = torch.from_numpy(sub[f]).to(device)
+        out[f][rows] = _unpack_cov(val, cov_type, d) if f == "cov" else val
     return out
 
 
 @dataclasses.dataclass
 class ClientMessage:
-    """Encoded payload + its decoded (C, …) f32 parameters.
+    """Encoded payload + its decoded f32 parameters.
 
-    ``params`` holds what the receiver computes on: the round-tripped
-    ``pi (C, K)``, ``mu (C, K, d)``, ``cov (C, K, …)`` as tensors on the
-    device of the parameters that were encoded.
+    ``params`` holds what the receiver computes on, as tensors on the
+    device of the parameters that were encoded: the round-tripped ``pi
+    (C, K)``, ``mu (C, K, d)``, ``cov (C, K, …)`` of a GMM message, or
+    ``w (d, C)``, ``b (C,)`` of a head message.
     """
     params: Dict[str, torch.Tensor]
     logliks: Tuple[float, ...]
@@ -180,31 +226,45 @@ class ClientMessage:
 def encode_message(params: Dict, counts, logliks, *, kind: str,
                    cov_type: str, n_classes: int,
                    codec: QuantizedCodec) -> ClientMessage:
-    """Client → wire: subset to present classes, quantize, serialize."""
-    if kind != "gmm":
-        raise _later("head messages (one-shot baselines)",
-                     "DP, Chain/Ring and baselines")
-    device = torch.as_tensor(params["mu"]).device
+    """Client → wire: subset a GMM message to present classes (a head
+    message ships whole), quantize, serialize; the message carries the
+    payload and the decoded parameters."""
+    params = {k: torch.as_tensor(v).detach().float()
+              for k, v in params.items()}
+    device = (params["mu"] if kind == "gmm" else params["w"]).device
     counts = np.asarray(torch.as_tensor(counts).cpu(), np.float64) \
         .astype(np.int64).ravel()
-    host = {k: np.asarray(torch.as_tensor(v).detach().float().cpu())
-            for k, v in params.items()}
-    K, d = host["mu"].shape[-2], host["mu"].shape[-1]
-    present = np.flatnonzero(counts > 0)
-    shapes = _gmm_shapes(cov_type, len(present), K, d)
-    payload = codec.encode({f: host[f][present] for f in _GMM_FIELDS},
-                           _GMM_FIELDS)
-    header = WireHeader(kind=kind, cov_type=cov_type, d=int(d), K=int(K),
-                        n_classes=int(n_classes),
+    if kind == "gmm":
+        K, d = params["mu"].shape[-2], params["mu"].shape[-1]
+        present = np.flatnonzero(counts > 0)
+        shapes = _gmm_shapes(cov_type, len(present), K, d)
+        fields = _GMM_FIELDS
+        rows = torch.as_tensor(present, device=device)
+        sub = {"pi": params["pi"][rows], "mu": params["mu"][rows],
+               "cov": _pack_cov(params["cov"].to(device)[rows], cov_type)}
+    elif kind == "head":
+        d, K = params["w"].shape[0], 1
+        shapes = {"w": (d, n_classes), "b": (n_classes,)}
+        fields = _HEAD_FIELDS
+        sub = params
+    else:
+        raise ValueError(f"encode_message: unknown kind {kind!r}")
+    payload = codec.encode(sub, fields)
+    header = WireHeader(kind=kind, cov_type=cov_type if kind == "gmm" else "",
+                        d=int(d), K=int(K), n_classes=int(n_classes),
                         counts=tuple(int(c) for c in counts),
                         dtype=codec.dtype)
-    decoded = _scatter_present(codec.decode(payload, shapes, _GMM_FIELDS),
-                               present, n_classes, K, d,
-                               host["cov"].shape[1:])
+    decoded = codec.decode(payload, shapes, fields)
+    if kind == "gmm":
+        decoded = _scatter_present(decoded, present, n_classes, K, d,
+                                   cov_type, device)
+    else:
+        decoded = {k: torch.from_numpy(v).to(device)
+                   for k, v in decoded.items()}
     lls = np.asarray(torch.as_tensor(logliks).detach().float().cpu()).ravel()
-    return ClientMessage(
-        params={k: torch.from_numpy(v).to(device) for k, v in decoded.items()},
-        logliks=tuple(float(v) for v in lls), header=header, payload=payload)
+    return ClientMessage(params=decoded,
+                         logliks=tuple(float(v) for v in lls), header=header,
+                         payload=payload)
 
 
 def decode_payload(header: WireHeader, payload: bytes
@@ -226,7 +286,9 @@ def decode_payload(header: WireHeader, payload: bytes
         payload, shapes, _GMM_FIELDS)
     if sub is None:
         return None, err
-    return _scatter_present(sub, present, C, K, d, shapes["cov"][1:]), err
+    out = _scatter_present(sub, present, C, K, d, header.cov_type,
+                           torch.device("cpu"))
+    return {k: v.numpy() for k, v in out.items()}, err
 
 
 def stack_messages(messages: Sequence[ClientMessage]
@@ -257,15 +319,204 @@ def fused_slot_stack(batch: Dict[str, torch.Tensor], counts,
 
 
 # ---------------------------------------------------------------------------
-# summarizer, topology, session
+# materialized synthesis: one sample per count bucket of the planner
+# ---------------------------------------------------------------------------
+
+
+def _sample_stacked(pi, mu, cov, S: int, cov_type: str, *,
+                    generator: Optional[torch.Generator] = None,
+                    draws: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> torch.Tensor:
+    """S draws from every mixture of a flat (G, K, …) stack → (G, S, d).
+
+    Component ∝ pi, Gaussian through ``gmm.sampling_factor`` — the same
+    primitives as the fused head, so the transform cannot drift between
+    the materializing and the fused server.  ``draws``: ``comp`` (G, S)
+    and ``eps`` (G, S, d); the reference draws them from
+    ``fold_in(key, global slot id)``.  Full covariance groups the draws by
+    (slot, component), never gathering a d × d factor per draw.
+    """
+    Gn, d = mu.shape[0], mu.shape[-1]
+    dev = mu.device
+    if draws is None:
+        comp = torch.multinomial(pi.float().clamp_min(1e-20), S,
+                                 replacement=True, generator=generator)
+        eps = torch.randn((Gn, S, d), generator=generator, device=dev,
+                          dtype=torch.float32)
+    else:
+        comp = draws["comp"].to(dev).long()
+        eps = draws["eps"].to(dev, torch.float32)
+    slot = torch.arange(Gn, device=dev)[:, None].expand(Gn, S)
+    fac = G.sampling_factor(cov, cov_type)                    # (G, K, …)
+    return G.slot_gaussian(slot, comp, eps, mu, fac, cov_type)
+
+
+def _as_batch(batch, counts):
+    """(counts (M, C) int64, batch as (M, C, K, …) tensors)."""
+    counts = np.asarray(torch.as_tensor(counts).cpu(), np.float64) \
+        .astype(np.int64)
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    if counts.ndim == 1:
+        counts = counts[None]
+        batch = {k: v[None] for k, v in batch.items()}
+    return counts, batch
+
+
+def synthesize_chunks(batch: Dict[str, torch.Tensor], counts, cov_type: str,
+                      samples_per_class: Optional[int] = None,
+                      policy: str = "pow2",
+                      plan: Optional[P.SynthesisPlan] = None, mesh=None, *,
+                      generator: Optional[torch.Generator] = None,
+                      draws: Optional[DrawFn] = None
+                      ) -> Tuple[List[Tuple[torch.Tensor, torch.Tensor]],
+                                 P.SynthesisPlan]:
+    """Algorithm 1, lines 13-16, bucket by bucket; runs where the batch
+    lies.
+
+    ``batch``: pi (M, C, K), mu (M, C, K, d), cov (M, C, K, …) — or one
+    client's (C, K, …).  ``counts`` (M, C); slots with 0 are never drawn.
+    Each power-of-two bucket of the plan (:mod:`repro_torch.fl.planner`)
+    is one :func:`_sample_stacked` at the bucket's padded S, compacted by
+    one gather: ≤ 2·Σcounts draws under any skew.  ``draws(slot_ids, S)``
+    returns a bucket's draws for ``_sample_stacked``.  Returns (chunks,
+    plan): compacted (feats (n, d), labels (n,)) pairs in ascending-bucket
+    order, never empty (an all-zero cohort gives one (0, d) chunk).
+    ``mesh`` waits for queue item 9.
+    """
+    if mesh is not None:
+        raise _later("mesh-sharded synthesis", _MESH_ITEM)
+    counts, batch = _as_batch(batch, counts)
+    M, C = counts.shape
+    if plan is None:
+        plan = P.plan_synthesis(counts, samples_per_class, policy=policy)
+    elif (plan.M, plan.C) != (M, C):
+        raise ValueError(f"plan was built for a ({plan.M}, {plan.C}) "
+                         f"cohort, counts are ({M}, {C})")
+    dev = batch["mu"].device
+    d = batch["mu"].shape[-1]
+    if not plan.buckets:
+        return [(torch.zeros((0, d), device=dev),
+                 torch.zeros((0,), dtype=torch.long, device=dev))], plan
+    flat = {k: v.reshape((M * C,) + tuple(v.shape[2:]))
+            for k, v in batch.items()}
+    chunks = []
+    for b in plan.buckets:
+        slots = torch.as_tensor(b.slots, device=dev)
+        samples = _sample_stacked(
+            flat["pi"][slots], flat["mu"][slots], flat["cov"][slots], b.S,
+            cov_type, generator=generator,
+            draws=None if draws is None else draws(b.slots, b.S))
+        keep = np.flatnonzero(np.arange(b.S)[None, :] < b.n_eff[:, None])
+        labels = np.repeat((b.slots % C).astype(np.int64), b.S)[keep]
+        feats = samples.reshape(len(b.slots) * b.S, d)[
+            torch.as_tensor(keep, device=dev)]
+        chunks.append((feats, torch.as_tensor(labels, device=dev)))
+    return chunks, plan
+
+
+def _concat(chunks) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (torch.cat([f for f, _ in chunks]),
+            torch.cat([y for _, y in chunks]))
+
+
+def synthesize_batched(batch: Dict[str, torch.Tensor], counts, cov_type: str,
+                       samples_per_class: Optional[int] = None,
+                       policy: str = "pow2", *,
+                       generator: Optional[torch.Generator] = None,
+                       draws: Optional[DrawFn] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pooled view of :func:`synthesize_chunks` — same plan, same
+    draws: (N, d) features and (N,) labels, N = Σ counts (or
+    M·C_present·samples_per_class)."""
+    chunks, _ = synthesize_chunks(batch, counts, cov_type, samples_per_class,
+                                  policy=policy, generator=generator,
+                                  draws=draws)
+    return _concat(chunks)
+
+
+def synthesize_group_chunks(items, samples_per_class: Optional[int] = None,
+                            policy: str = "pow2", mesh=None, *,
+                            generator: Optional[torch.Generator] = None,
+                            draws: Optional[Sequence[DrawFn]] = None):
+    """Planned synthesis over a possibly heterogeneous cohort.
+
+    ``items``: ``(params, counts, cov_type)`` per client.  Clients with the
+    same (cov_type, parameter shapes) stack into one group, one plan each
+    (a mixed-K / mixed-family cohort, paper §6.3, gets one plan per
+    family), in sorted group order.  ``draws``: one :func:`synthesize_chunks`
+    draw function per group.  Returns (chunks, plans).
+    """
+    groups: Dict[Tuple, List] = {}
+    for params, counts, cov_type in items:
+        sig = (cov_type,) + tuple(tuple(torch.as_tensor(params[f]).shape)
+                                  for f in _GMM_FIELDS)
+        groups.setdefault(sig, []).append((params, counts))
+    chunks, plans = [], []
+    for gi, (sig, members) in enumerate(sorted(groups.items())):
+        batch = {f: torch.stack([torch.as_tensor(p[f]) for p, _ in members])
+                 for f in _GMM_FIELDS}
+        counts = np.stack([np.asarray(torch.as_tensor(c).cpu())
+                           for _, c in members])
+        ch, plan = synthesize_chunks(
+            batch, counts, sig[0], samples_per_class, policy=policy,
+            mesh=mesh, generator=generator,
+            draws=None if draws is None else draws[gi])
+        chunks.extend(ch)
+        plans.append(plan)
+    return chunks, plans
+
+
+def synthesize_groups(items, samples_per_class: Optional[int] = None, *,
+                      generator: Optional[torch.Generator] = None,
+                      draws: Optional[Sequence[DrawFn]] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pooled view of :func:`synthesize_group_chunks`."""
+    chunks, _ = synthesize_group_chunks(items, samples_per_class,
+                                        generator=generator, draws=draws)
+    return _concat(chunks)
+
+
+def synthesize_looped(batch: Dict, counts, cov_type: str,
+                      samples_per_class: Optional[int] = None, *,
+                      generator: Optional[torch.Generator] = None,
+                      draws: Optional[DrawFn] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-(client, class) loop over ``gmm.sample`` — the equivalence
+    yardstick of the bucketed path.  ``draws(slot_ids, n)`` as for
+    :func:`synthesize_chunks`, called with one slot id at a time."""
+    counts, batch = _as_batch(batch, counts)
+    M, C = counts.shape
+    dev = batch["mu"].device
+    feats, labels = [], []
+    for m in range(M):
+        for c in range(C):
+            n = int(counts[m, c])
+            if samples_per_class is not None and n > 0:
+                n = samples_per_class
+            if n <= 0:
+                continue
+            g = {k: v[m, c] for k, v in batch.items()}
+            dr = {} if draws is None else {
+                k: v[0] for k, v in draws(np.asarray([m * C + c]), n).items()}
+            feats.append(G.sample(g, n, cov_type, generator=generator,
+                                  comp=dr.get("comp"), eps=dr.get("eps")))
+            labels.append(torch.full((n,), c, dtype=torch.long, device=dev))
+    if not feats:
+        return (torch.zeros((0, batch["mu"].shape[-1]), device=dev),
+                torch.zeros((0,), dtype=torch.long, device=dev))
+    return torch.cat(feats), torch.cat(labels)
+
+
+# ---------------------------------------------------------------------------
+# summarizers: what a client puts on the wire
 # ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
 class GMMSummarizer:
     """The paper's summary: one GMM per present class (Algorithm 1,
-    lines 5-10), all C fits as one batched EM whose E-step is one fused
-    kernel launch per iteration."""
+    lines 5-10), all C fits as one batched EM — diag/spher with one fused
+    E-step kernel launch per iteration, full on the Cholesky path."""
     gmm: G.GMMConfig = G.GMMConfig()
 
     kind = "gmm"
@@ -275,17 +526,59 @@ class GMMSummarizer:
         return self.gmm.cov_type
 
     def summarize(self, feats, labels, n_classes: int, *,
-                  generator: torch.Generator):
+                  generator: Optional[torch.Generator] = None,
+                  draws: Optional[Dict[str, torch.Tensor]] = None):
+        """``draws``: the k-means ``init_idx`` (C, K) and ``jitter``
+        (C, K, d) of ``gmm.fit_classwise_gmms_batched``."""
+        dr = draws or {}
         gmms, counts, lls = G.fit_classwise_gmms_batched(
             feats[None], labels[None], n_classes, self.gmm,
-            generator=generator)
+            generator=generator, init_idx=dr.get("init_idx"),
+            jitter=dr.get("jitter"))
         return {k: v[0] for k, v in gmms.items()}, counts[0], lls[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadSummarizer:
+    """The one-shot baselines' summary (AVG / Ensemble / FedBE): a locally
+    trained linear head instead of GMMs — same message schema, same codec,
+    different aggregation.  ``draws``: ``init`` (d, C) and ``idx``
+    (n_steps, batch) for ``baselines.local_train``."""
+    n_steps: int = 150
+    lr: float = 3e-3
+
+    kind = "head"
+    cov_type = ""
+
+    def summarize(self, feats, labels, n_classes: int, *,
+                  generator: Optional[torch.Generator] = None,
+                  draws: Optional[Dict[str, torch.Tensor]] = None):
+        keep = labels >= 0                  # drop label −1 padding rows
+        if not bool(keep.all()):
+            feats, labels = feats[keep], labels[keep]
+        d = int(feats.shape[1])
+        head0 = H.init_head(d, n_classes, generator=generator,
+                            normal=None if draws is None else draws["init"],
+                            device=feats.device)
+        head = FB.local_train(head0, feats, labels, n_classes,
+                              n_steps=self.n_steps, lr=self.lr,
+                              generator=generator,
+                              idx=None if draws is None else draws["idx"])
+        counts = torch.bincount(labels.long(), minlength=n_classes).float()
+        return head, counts, torch.zeros((n_classes,), device=feats.device)
+
+
+# ---------------------------------------------------------------------------
+# topologies
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass
 class SessionResult:
-    """What a federation round produced."""
-    model: Any                     # the global head
+    """What a federation round produced.  ``model`` is the global head
+    (Star), the last client's head (Chain/Ring), or a list of heads
+    (``aggregate="ensemble" | "fedbe"``)."""
+    model: Any
     info: Dict
     messages: List[ClientMessage]
 
@@ -311,7 +604,7 @@ class Star:
                 f, y, i, generator=generator, device=device)
             _sync(device)
             t1 = time.perf_counter()
-            messages.append(session.encode(params, counts, lls))
+            messages.append(session.encode(params, counts, lls, i))
             t2 = time.perf_counter()
             phase["client_fit_s"] += t1 - t0
             phase["encode_s"] += t2 - t1
@@ -325,8 +618,48 @@ class Star:
 
 
 @dataclasses.dataclass(frozen=True)
+class Chain:
+    """Linear topology (§4.2, Fig. 5): client 1 → 2 → … → M.  Each client
+    samples synthetic features from the message it received, unions them
+    with its own, re-fits, re-encodes and passes on; it also trains its
+    own head on the union."""
+    laps: int = 1
+    name = "chain"
+
+    def run(self, session: "FedSession", client_datasets, *,
+            generator: torch.Generator, device: torch.device
+            ) -> SessionResult:
+        received = None
+        messages, infos = [], []
+        for i in list(range(len(client_datasets))) * self.laps:
+            f, y = client_datasets[i]
+            received, info = session.chain_step(
+                f, y, i, received, generator=generator, device=device)
+            messages.append(received)
+            infos.append(info)
+        return SessionResult(
+            model=infos[-1]["head"],
+            info={"comm_bytes": sum(m.comm_bytes for m in messages),
+                  "per_client": infos},
+            messages=messages)
+
+
+@dataclasses.dataclass(frozen=True)
+class Ring(Chain):
+    """A chain with wraparound: after ``laps`` passes every client, the
+    first too, has refit on the accumulated knowledge."""
+    laps: int = 2
+    name = "ring"
+
+
+# ---------------------------------------------------------------------------
+# FedSession
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
 class FedSession:
-    """One federation instance: GMM summarizer × codec × Star topology.
+    """One federation instance: summarizer × codec × topology (× DP).
 
     >>> sess = FedSession(n_classes=10,
     ...                   summarizer=GMMSummarizer(G.GMMConfig(5, "diag")))
@@ -335,6 +668,8 @@ class FedSession:
     ...                                  for m in result.messages)
 
     ``run`` is the entry point: on ``cuda`` unless ``device="cpu"``.
+    ``client_summarizers`` gives each client its own summarizer (mixed K
+    or covariance family, paper §6.3).
     """
     n_classes: int
     summarizer: Any = GMMSummarizer()
@@ -342,42 +677,36 @@ class FedSession:
     topology: Any = Star()
     head: H.HeadConfig = H.HeadConfig()
     normalize_features: bool = False
+    dp: Optional[DP.DPConfig] = None
     samples_per_class: Optional[int] = None
+    aggregate: str = "synthesize"  # or "avg" | "ensemble" | "fedbe"
+    client_summarizers: Optional[Tuple[Any, ...]] = None
     min_class_count: int = 0
-    synthesis: str = "fused"
-    aggregate: str = "synthesize"
-    dp: Optional[Any] = None
+    synthesis: str = "fused"       # one of SYNTHESIS_MODES
     ingest: Optional[Any] = None
     program_cache: Optional[Any] = None
     resilience: Optional[Any] = None
     mesh: Any = None
     shards: Optional[int] = None
-    client_summarizers: Optional[Tuple[Any, ...]] = None
 
     def _check_supported(self) -> None:
         refused = [
-            (self.dp is not None, "DP", "DP, Chain/Ring and baselines"),
-            (not isinstance(self.topology, Star), "Chain/Ring topologies",
-             "DP, Chain/Ring and baselines"),
-            (self.aggregate != "synthesize", "head aggregation",
-             "DP, Chain/Ring and baselines"),
-            (self.synthesis != "fused", f"synthesis={self.synthesis!r}",
-             "streamed/pooled synthesis"),
             (self.ingest is not None, "streaming ingest",
-             "ingest and round cache"),
+             "item 4, ingest and round cache"),
             (self.program_cache is not None, "the round-program cache",
-             "ingest and round cache"),
-            (self.resilience is not None, "resilience", "faults"),
+             "item 4, ingest and round cache"),
+            (self.resilience is not None, "resilience", "item 5, faults"),
             (self.mesh is not None or self.shards is not None,
-             "mesh execution", "mesh, launch and analysis"),
-            (self.client_summarizers is not None,
-             "heterogeneous client summarizers", "streamed/pooled synthesis"),
-            (getattr(self.summarizer, "kind", "gmm") != "gmm",
-             "head summaries", "DP, Chain/Ring and baselines"),
+             "mesh execution", _MESH_ITEM),
         ]
         for bad, what, item in refused:
             if bad:
                 raise _later(what, item)
+
+    def summarizer_for(self, i: int):
+        if self.client_summarizers is not None:
+            return self.client_summarizers[i]
+        return self.summarizer
 
     def _normalize(self, feats: torch.Tensor) -> torch.Tensor:
         if not self.normalize_features:
@@ -385,68 +714,191 @@ class FedSession:
         n = feats.norm(dim=-1, keepdim=True)
         return feats / n.clamp_min(1.0)
 
+    def _inputs(self, feats, labels, device):
+        return (self._normalize(torch.as_tensor(feats).to(device).float()),
+                torch.as_tensor(labels).to(device).long())
+
     # -- client side --------------------------------------------------------
 
     def client_summary(self, feats, labels, i: int = 0, *,
                        generator: torch.Generator, device: torch.device):
-        """Client ``i``'s per-class GMMs, counts and log-likelihoods."""
-        feats = self._normalize(torch.as_tensor(feats).to(device).float())
-        labels = torch.as_tensor(labels).to(device).long()
-        params, counts, lls = self.summarizer.summarize(
-            feats, labels, self.n_classes, generator=generator)
+        """Client ``i``'s summary, counts and log-likelihoods, privatized
+        when the session has a DP config."""
+        summ = self.summarizer_for(i)
+        feats, labels = self._inputs(feats, labels, device)
+        params, counts, lls = summ.summarize(feats, labels, self.n_classes,
+                                             generator=generator)
+        if self.min_class_count and summ.kind == "gmm":
+            counts = torch.where(counts >= self.min_class_count, counts,
+                                 torch.zeros_like(counts))
+        if self.dp is not None:
+            if not (summ.kind == "gmm" and summ.cov_type == "full"
+                    and params["mu"].shape[-2] == 1):
+                raise ValueError("Theorem 4.1 requires K=1 full-covariance "
+                                 "summaries")
+            params = DP.privatize_classwise(params, counts, self.dp,
+                                            generator=generator)
+        return params, counts, lls
+
+    def encode(self, params, counts, lls, i: int = 0) -> ClientMessage:
+        summ = self.summarizer_for(i)
+        return encode_message(params, counts, lls, kind=summ.kind,
+                              cov_type=summ.cov_type,
+                              n_classes=self.n_classes, codec=self.codec)
+
+    def chain_step(self, feats, labels, i: int,
+                   received: Optional[ClientMessage], *,
+                   generator: Optional[torch.Generator] = None,
+                   device: torch.device,
+                   draws: Optional[Dict[str, Any]] = None
+                   ) -> Tuple[ClientMessage, Dict]:
+        """One client's turn in a Chain/Ring pass: draw from the received
+        message, union with the local features, re-fit, encode, and train
+        the local head on the union.  ``draws`` replaces the draws:
+        ``synthesis`` (a :func:`synthesize_chunks` draw function), ``fit``
+        (the summarizer's) and ``head`` (``core.head.train_head``'s)."""
+        dr = draws or {}
+        if self.dp is not None:
+            # Theorem 4.1 accounts for one summary of one client's data; a
+            # chain message summarizes a union with other clients' samples
+            raise NotImplementedError(
+                "DP composition is only supported for the Star topology")
+        summ = self.summarizer_for(i)
+        if summ.kind != "gmm":
+            raise NotImplementedError(
+                "Chain/Ring topologies require a GMM summarizer")
+        feats, labels = self._inputs(feats, labels, device)
+        if received is not None and received.header.kind == "gmm":
+            syn_f, syn_y = synthesize_batched(
+                received.params, received.counts, received.header.cov_type,
+                generator=generator, draws=dr.get("synthesis"))
+            if syn_f.shape[0]:
+                feats = torch.cat([feats, syn_f.to(device)])
+                labels = torch.cat([labels, syn_y.to(device)])
+        params, counts, lls = summ.summarize(feats, labels, self.n_classes,
+                                             generator=generator,
+                                             draws=dr.get("fit"))
         if self.min_class_count:
             counts = torch.where(counts >= self.min_class_count, counts,
                                  torch.zeros_like(counts))
-        return params, counts, lls
-
-    def encode(self, params, counts, lls) -> ClientMessage:
-        return encode_message(params, counts, lls, kind=self.summarizer.kind,
-                              cov_type=self.summarizer.cov_type,
-                              n_classes=self.n_classes, codec=self.codec)
+        msg = self.encode(params, counts, lls, i)
+        head_params, _ = H.train_head(feats, labels, self.n_classes,
+                                      self.head, generator=generator,
+                                      draws=dr.get("head"))
+        return msg, {"head": head_params, "n_train": int(feats.shape[0])}
 
     # -- server side --------------------------------------------------------
+
+    def _synthesis_mode(self) -> str:
+        if self.synthesis not in SYNTHESIS_MODES:
+            raise ValueError(
+                f"FedSession: unknown synthesis={self.synthesis!r} — choose "
+                f"one of {SYNTHESIS_MODES}")
+        return self.synthesis
+
+    def _fused_slot_stack(self, messages: Sequence[ClientMessage]):
+        """The fused path's slot stack, or None for a heterogeneous cohort
+        (mixed K / cov family, §6.3) that cannot stack into one tensor."""
+        sigs = {(m.header.cov_type,) + tuple(
+            tuple(m.params[f].shape) for f in _GMM_FIELDS) for m in messages}
+        if len(sigs) > 1:
+            return None
+        return fused_slot_stack(stack_messages(messages),
+                                np.stack([m.counts for m in messages]),
+                                self.samples_per_class)
+
+    def _empty_cohort_result(self, info: Dict, messages, *,
+                             generator: torch.Generator,
+                             device: torch.device) -> SessionResult:
+        """Every class filtered out: a cleanly initialized head instead of
+        training on a 0-row pool."""
+        d = messages[0].header.d
+        info.update(synthetic_feats=torch.zeros((0, d), device=device),
+                    synthetic_labels=torch.zeros((0,), dtype=torch.long,
+                                                 device=device),
+                    head_losses=torch.zeros((0,), device=device),
+                    empty_cohort=True)
+        return SessionResult(
+            model=H.init_head(d, self.n_classes, generator=generator,
+                              device=device),
+            info=info, messages=list(messages))
 
     def server_aggregate(self, messages: Sequence[ClientMessage], *,
                          generator: torch.Generator,
                          device: torch.device) -> SessionResult:
         if not messages:
             raise ValueError("server_aggregate needs at least one message")
-        info: Dict = {"comm_bytes": sum(m.comm_bytes for m in messages),
-                      "synthesis": "fused"}
-        sigs = {(m.header.cov_type,) + tuple(
-            tuple(m.params[f].shape) for f in _GMM_FIELDS) for m in messages}
-        if len(sigs) > 1:
-            raise _later("heterogeneous cohorts (mixed K / cov family)",
-                         "streamed/pooled synthesis")
-        stack, slot_labels, slot_counts, plan = fused_slot_stack(
-            stack_messages(messages),
-            np.stack([m.counts for m in messages]), self.samples_per_class)
-        info["synthesis_plans"] = [plan]
-        if len(plan.slot_table) == 0:
-            # every class filtered out: a cleanly initialized head
-            d = messages[0].header.d
-            info.update(head_losses=torch.zeros((0,), device=device),
-                        empty_cohort=True)
-            return SessionResult(
-                model=H.init_head(d, self.n_classes, generator=generator,
-                                  device=device),
-                info=info, messages=list(messages))
-        head_params, losses = H.train_head_from_gmms(
-            stack["pi"], stack["mu"], stack["cov"], slot_labels, slot_counts,
-            self.n_classes, self.head, messages[0].header.cov_type,
-            device=device, generator=generator)
-        info["head_losses"] = losses
+        info: Dict = {"comm_bytes": sum(m.comm_bytes for m in messages)}
+        if messages[0].header.kind != "gmm":
+            return self._aggregate_heads(messages, info, generator=generator)
+        mode = self._synthesis_mode()
+        fused = None
+        if mode == "fused":
+            fused = self._fused_slot_stack(messages)
+            if fused is None:
+                mode = "pooled"
+                info["synthesis_fallback"] = "heterogeneous cohort"
+        info["synthesis"] = mode
+        if mode == "fused":
+            stack, slot_labels, slot_counts, plan = fused
+            info["synthesis_plans"] = [plan]
+            if len(plan.slot_table) == 0:
+                return self._empty_cohort_result(
+                    info, messages, generator=generator, device=device)
+            head_params, losses = H.train_head_from_gmms(
+                stack["pi"], stack["mu"], stack["cov"], slot_labels,
+                slot_counts, self.n_classes, self.head,
+                messages[0].header.cov_type, device=device,
+                generator=generator)
+            info["head_losses"] = losses
+            return SessionResult(model=head_params, info=info,
+                                 messages=list(messages))
+        chunks, plans = synthesize_group_chunks(
+            [(m.params, m.counts, m.header.cov_type) for m in messages],
+            self.samples_per_class, generator=generator)
+        info["synthesis_plans"] = plans
+        if sum(int(f.shape[0]) for f, _ in chunks) == 0:
+            return self._empty_cohort_result(
+                info, messages, generator=generator, device=device)
+        if mode == "streamed":
+            head_params, losses = H.train_head_streaming(
+                chunks, self.n_classes, self.head, generator=generator)
+            info.update(synthetic_chunks=chunks, head_losses=losses)
+        else:
+            feats, labels = _concat(chunks)
+            head_params, losses = H.train_head(feats, labels, self.n_classes,
+                                               self.head, generator=generator)
+            info.update(synthetic_feats=feats, synthetic_labels=labels,
+                        head_losses=losses)
         return SessionResult(model=head_params, info=info,
                              messages=list(messages))
+
+    def _aggregate_heads(self, messages, info: Dict, *,
+                         generator: torch.Generator) -> SessionResult:
+        """The one-shot baselines' server: uniform AVG, the ensemble of
+        the client heads, or FedBE with 10 posterior samples."""
+        heads = [m.params for m in messages]
+        if self.aggregate == "avg":
+            model: Any = FB.avg_heads(heads)
+        elif self.aggregate == "ensemble":
+            model = list(heads)
+        elif self.aggregate == "fedbe":
+            model = FB.fedbe(heads, n_samples=10, generator=generator)
+        else:
+            raise ValueError(f"FedSession: aggregate={self.aggregate!r} "
+                             "cannot combine head messages — choose avg, "
+                             "ensemble or fedbe")
+        return SessionResult(model=model, info=info, messages=list(messages))
 
     # -- entry point --------------------------------------------------------
 
     def run(self, client_datasets: Sequence[Tuple[Any, Any]], *,
             seed: int = 0, device: Optional[str] = None) -> SessionResult:
-        """One-shot round over ``[(feats_i, labels_i)]``: every draw comes
-        from one ``torch.Generator`` seeded with ``seed`` on the session's
-        device.  ``info["phase_s"]`` holds the host wall time of the client
-        fits, the encoding and the server phase."""
+        """One round over ``[(feats_i, labels_i)]`` along the session's
+        topology: every draw comes from one ``torch.Generator`` seeded with
+        ``seed`` on the session's device.  A Star round's
+        ``info["phase_s"]`` holds the host wall time of the client fits,
+        the encoding and the server phase."""
         self._check_supported()
         dev = resolve_device(device)
         generator = torch.Generator(device=dev)

@@ -332,3 +332,45 @@ def test_features_on_card_match_the_cpu_path(dev):
     cpu["blocks"] = {k: v.cpu() for k, v in params["blocks"].items()}
     on_cpu = M.features(cfg, cpu, {"frames": frames.cpu()}, device="cpu")
     torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=5e-2, atol=5e-2)
+
+
+def test_grouped_full_noise_matches_the_gathered_form_on_card(dev):
+    """Full-covariance draws grouped by (slot, component) on the card
+    against the gathered form (one d × d factor per draw) at d = 64."""
+    from repro_torch.core import gmm as G
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    Gs, K, d = 6, 3, 64
+    a = torch.randn(Gs, K, d, d, generator=g, device=dev)
+    fac = G.sampling_factor(a @ a.transpose(-1, -2) / d, "full")
+    mu = torch.randn(Gs, K, d, generator=g, device=dev)
+    slot = torch.randint(0, Gs, (8, 64), generator=g, device=dev)
+    comp = torch.randint(0, K, (8, 64), generator=g, device=dev)
+    eps = torch.randn(8, 64, d, generator=g, device=dev)
+    got = G.slot_gaussian(slot, comp, eps, mu, fac, "full")
+    exp = mu[slot, comp] + G.colored_noise(fac[slot, comp], eps, "full")
+    torch.testing.assert_close(got, exp, rtol=1e-4, atol=1e-4)
+
+
+def test_full_covariance_fit_on_card_matches_the_cpu_path(dev):
+    """A full-covariance classwise fit (Cholesky E-step, batched M-step
+    products) on the card against the port's CPU path, the same draws;
+    the fit tolerance 2e-3 (tests/test_gmm.py)."""
+    from repro_torch.core import gmm as G
+    g = torch.Generator()
+    g.manual_seed(3)
+    C, K, N, d = 4, 2, 400, 32
+    labels = torch.randint(0, C, (N,), generator=g)
+    x = torch.randn(N, d, generator=g) + 3.0 * torch.eye(C, d)[labels]
+    idx = torch.randint(0, N, (C, K), generator=g)
+    jit = torch.randn(C, K, d, generator=g)
+    cfg = G.GMMConfig(n_components=K, cov_type="full", n_iter=10)
+    on_cpu = G.fit_classwise_gmms(x, labels, C, cfg, device="cpu",
+                                  init_idx=idx, jitter=jit)
+    on_card = G.fit_classwise_gmms(x, labels, C, cfg, device="cuda",
+                                   init_idx=idx, jitter=jit)
+    for f in ("pi", "mu", "cov"):
+        torch.testing.assert_close(on_card[0][f].cpu(), on_cpu[0][f],
+                                   rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(on_card[2].cpu(), on_cpu[2], rtol=2e-3,
+                               atol=2e-3)

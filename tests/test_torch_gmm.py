@@ -194,11 +194,26 @@ class TestTrapsAndRefusals:
                                                   3)))
 
     def test_full_covariance_refused_with_roadmap_item(self):
-        x = torch.randn(10, 3)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            G.fit_gmm_batch(x[None], torch.ones(1, 10),
-                            G.GMMConfig(n_components=2, cov_type="full"),
-                            generator=torch.Generator())
+        """cov_type="full" runs: a single full fit with the reference's
+        k-means draws matches ``repro.core.gmm.fit_gmm`` at 2e-3."""
+        x = np.random.RandomState(6).randn(60, 4).astype(np.float32)
+        w = np.ones(60, np.float32)
+        w[:5] = 0.0
+        key = jax.random.PRNGKey(1)
+        gj, llj = JG.fit_gmm(key, x, w, JG.GMMConfig(2, "full", n_iter=6))
+        k_choice, k_jitter = jax.random.split(key)
+        idx = jax.random.choice(k_choice, 60, (2,), p=w / w.sum())
+        jit = jax.random.normal(k_jitter, (2, 4), jnp.float32)
+        gt, llt = G.fit_gmm(torch.from_numpy(x), torch.from_numpy(w),
+                            G.GMMConfig(2, "full", n_iter=6),
+                            init_idx=torch.from_numpy(np.array(idx)),
+                            jitter=torch.from_numpy(np.array(jit)))
+        assert gt["cov"].shape == (2, 4, 4)
+        for f in ("pi", "mu", "cov"):
+            np.testing.assert_allclose(gt[f].numpy(), np.asarray(gj[f]),
+                                       rtol=FIT_TOL, atol=FIT_TOL)
+        np.testing.assert_allclose(float(llt), float(llj), rtol=FIT_TOL,
+                                   atol=FIT_TOL)
 
     def test_entry_point_needs_cuda_unless_cpu_is_asked(self):
         if torch.cuda.is_available():

@@ -128,13 +128,63 @@ def test_session_options_filter_resample_and_normalize(features):
 
 
 def test_unported_options_name_their_roadmap_item():
-    for kw in ({"dp": object()}, {"synthesis": "pooled"},
-               {"ingest": object()}, {"aggregate": "avg"},
-               {"program_cache": object()}, {"shards": 2}):
+    for kw, item in (({"ingest": object()}, "item 4"),
+                     ({"program_cache": object()}, "item 4"),
+                     ({"resilience": object()}, "item 5"),
+                     ({"shards": 2}, "item 9")):
         sess = A.FedSession(n_classes=2, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
             sess.run([(torch.zeros(4, 3), torch.zeros(4).long())],
                      device="cpu")
+
+
+@pytest.mark.parametrize("option", ["dp", "pooled", "avg"])
+def test_lifted_options_run_like_the_reference(features, option):
+    """DP-FedPFT, pooled synthesis and head averaging run in the port on
+    the standin features: the same bytes as the reference's session, and
+    an accuracy within 0.08 of the reference's (pooled: also the
+    reference's bar against the centralized head)."""
+    from repro.core import dp as JDP
+    from repro.fl import api as JA
+    from repro_torch.core import dp as DP
+    (f, fj, y), (ft, fjt, yt) = features[0], features[1]
+    parts = D.iid_shards(len(y), 3)
+    head_t, head_j = H.HeadConfig(n_steps=250, lr=3e-3), \
+        JH.HeadConfig(n_steps=250, lr=3e-3)
+    if option == "dp":
+        kw_t = dict(dp=DP.DPConfig(epsilon=50.0), normalize_features=True,
+                    summarizer=A.GMMSummarizer(G.GMMConfig(1, "full", 8)))
+        kw_j = dict(dp=JDP.DPConfig(epsilon=50.0), normalize_features=True,
+                    summarizer=JA.GMMSummarizer(JG.GMMConfig(1, "full", 8)))
+    elif option == "pooled":
+        kw_t = dict(synthesis="pooled",
+                    summarizer=A.GMMSummarizer(G.GMMConfig(2, n_iter=10)))
+        kw_j = dict(synthesis="pooled",
+                    summarizer=JA.GMMSummarizer(JG.GMMConfig(2, n_iter=10)))
+    else:
+        kw_t = dict(aggregate="avg", summarizer=A.HeadSummarizer())
+        kw_j = dict(aggregate="avg", summarizer=JA.HeadSummarizer())
+    res = A.FedSession(n_classes=4, head=head_t, **kw_t).run(
+        [(f[p], y[p]) for p in parts], device="cpu")
+    yn = y.numpy()
+    rj = JA.FedSession(n_classes=4, head=head_j, **kw_j).run(
+        jax.random.PRNGKey(0), [(fj[p], yn[p]) for p in parts])
+    assert res.info["comm_bytes"] == rj.info["comm_bytes"] == sum(
+        len(m.payload) for m in res.messages)
+
+    def normed(a):
+        if not kw_t.get("normalize_features"):
+            return a
+        return a / np.maximum(np.linalg.norm(a, axis=-1, keepdims=True), 1.0)
+    acc = float(H.accuracy(res.model, torch.from_numpy(
+        normed(ft.numpy())), yt))
+    acc_j = float(JH.accuracy(rj.model, normed(fjt), yt.numpy()))
+    assert abs(acc - acc_j) <= 0.08, (acc, acc_j)
+    if option == "pooled":
+        head_c, _ = FP.centralized_baseline(
+            [(f[p], y[p]) for p in parts], 4,
+            FP.FedPFTConfig(head=head_t), device="cpu")
+        assert acc > float(H.accuracy(head_c, ft, yt)) - 0.08
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():
@@ -145,3 +195,17 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         A.FedSession(n_classes=2).run(clients)
     with pytest.raises(RuntimeError, match="CUDA"):
         FP.run_fedpft(clients, 2, FP.FedPFTConfig())
+    from repro_torch.core import decentralized as DC
+    from repro_torch.core import dp as DP
+    from repro_torch.fl import baselines as B
+    full = FP.FedPFTConfig(gmm=G.GMMConfig(1, "full"))
+    for run in (lambda: DP.run_dp_fedpft(clients, 2, full, DP.DPConfig()),
+                lambda: DC.run_chain(clients, 2, FP.FedPFTConfig()),
+                lambda: FP.client_update(*clients[0], 2, FP.FedPFTConfig()),
+                lambda: B.fedavg(clients, 2, B.MultiRoundConfig()),
+                lambda: A.FedSession(n_classes=2, topology=A.Ring()).run(
+                    clients),
+                lambda: A.FedSession(n_classes=2, synthesis="pooled").run(
+                    clients)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run()

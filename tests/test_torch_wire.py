@@ -105,15 +105,56 @@ class TestWireIsExact:
         assert A.decode_payload(hdr, m.payload)[0] is None
 
     def test_full_covariance_and_head_messages_refused(self):
+        """Full-covariance and head messages both go on the wire: their
+        payloads are byte-identical to the reference's and decode to the
+        same parameters (a full cov as its row-major lower triangle)."""
         params, counts, lls = _gmm_params(4)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            A.encode_message(params, counts, lls, kind="gmm",
-                             cov_type="full", n_classes=4,
-                             codec=A.QuantizedCodec())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            A.encode_message(params, counts, lls, kind="head",
-                             cov_type="", n_classes=4,
-                             codec=A.QuantizedCodec())
+        rng = np.random.RandomState(4)
+        a = rng.randn(4, 3, 5, 5).astype(np.float32)
+        params["cov"] = (a @ np.swapaxes(a, -1, -2)).astype(np.float32)
+        head = {"w": rng.randn(5, 4).astype(np.float32),
+                "b": rng.randn(4).astype(np.float32)}
+        for kind, p, cov in (("gmm", params, "full"), ("head", head, "")):
+            kw = dict(kind=kind, cov_type=cov, n_classes=4)
+            mj = JA.encode_message(p, counts, lls,
+                                   codec=JA.QuantizedCodec(), **kw)
+            mt = A.encode_message({k: torch.from_numpy(v)
+                                   for k, v in p.items()}, counts, lls,
+                                  codec=A.QuantizedCodec(), **kw)
+            assert mt.payload == mj.payload
+            assert dataclasses.asdict(mt.header) == \
+                dataclasses.asdict(mj.header)
+            for f in p:
+                np.testing.assert_array_equal(mt.params[f].numpy(),
+                                              np.asarray(mj.params[f]))
+        assert mt.comm_bytes == (5 * 4 + 4) * 2
+
+
+class TestFullCovarianceWire:
+    @pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+    def test_full_payload_both_ways(self, dtype):
+        """A full-cov payload from the port is the reference's, byte for
+        byte, and each side's ``decode_payload`` decodes the other's."""
+        params, counts, lls = _gmm_params(6)
+        a = np.random.RandomState(6).randn(4, 3, 5, 5).astype(np.float32)
+        params["cov"] = (a @ np.swapaxes(a, -1, -2) / 5).astype(np.float32)
+        kw = dict(kind="gmm", cov_type="full", n_classes=4)
+        mj = JA.encode_message(params, counts, lls,
+                               codec=JA.QuantizedCodec(dtype), **kw)
+        mt = A.encode_message({k: torch.from_numpy(v)
+                               for k, v in params.items()}, counts, lls,
+                              codec=A.QuantizedCodec(dtype), **kw)
+        assert mt.payload == mj.payload
+        assert mt.comm_bytes == G.comm_bytes(
+            "full", 5, 3, 3, A.QuantizedCodec(dtype).bytes_per_scalar)
+        from_ref, e1 = A.decode_payload(_port_header(mj.header), mj.payload)
+        from_port, e2 = JA.decode_payload(_ref_header(mt.header), mt.payload)
+        assert e1 is None and e2 is None
+        for f in G.WIRE_FIELDS:
+            np.testing.assert_array_equal(from_ref[f], from_port[f])
+            np.testing.assert_array_equal(mt.params[f].numpy(), from_ref[f])
+        cov = mt.params["cov"].numpy()
+        np.testing.assert_array_equal(cov, np.swapaxes(cov, -1, -2))
 
 
 class TestSlotStackAndPlanner:
