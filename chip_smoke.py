@@ -20,7 +20,14 @@ paths run, each one line: full-covariance FedPFT (K = 1, the tril-packed
 wire, the server's peak memory), DP-FedPFT (Theorem 4.1), a Chain of the
 four clients, the streamed and pooled servers, the one-shot head
 baselines and FedAvg / FedYogi, and the Theorem 6.1 bound with the
-reconstruction attack.
+reconstruction attack.  Then four more: the §5.3 shifts (label,
+covariate and task, the last two through the encoder on their own
+inputs: Centralized, Ensemble, AVG, KD and FedPFT each), streaming
+ingest (bitwise the fused round; 56 of 120 slots evicted at capacity
+64), the round-program cache (one captured CUDA graph per canonical
+cohort signature: bitwise the eager server, faster than it, no capture
+in a warm streaming round) and a chaos round under a fault plan (bitwise
+an offline round over its survivors).
 
 Prints one JSON object per line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -599,8 +606,14 @@ def main_path(torch, dev, card, name, keep=None):
                 "path)", on_card.cpu(), on_cpu, ATTN_TOL_BF16, n=2,
                 **cut, cpu_s=time.perf_counter() - t0)
     if keep is not None:
+        # features_of keeps the weights alive for the shift phase's inputs
+        # until the caller clears ``keep``
+        def features_of(raw, weights=params):
+            fr = frames_of(np, raw, 64, cfg.frame_embed_dim)
+            return torch.cat([M.features(cfg, weights, {key: fr[i:i + batch]})
+                              for i in range(0, len(fr), batch)])
         keep.update(feats=feats, feats_t=feats_t, y=y_dev, yt=yt_dev, x=x,
-                    xt=xt, comm_fused=comm)
+                    xt=xt, comm_fused=comm, features_of=features_of)
     del params, p2, feats, feats_t, clients, res, sess
     gc.collect()
     torch.cuda.empty_cache()
@@ -856,6 +869,290 @@ def slice_paths(torch, dev, card, kept):
     return out
 
 
+def shift_methods(torch, dev, src, dst, test, C):
+    """benchmarks/shifts.py's Table 2 row for one two-client shift:
+    (accuracy, bytes) of Centralized, Ensemble, AVG, KD and FedPFT."""
+    from repro_torch.core import decentralized as DC
+    from repro_torch.core import fedpft as FP
+    from repro_torch.core import head as H
+    from repro_torch.fl import baselines as B
+    (fs, ys), (fd, yd) = src, dst
+    ft, yt = test
+    d = int(fs.shape[1])
+    cfg = FP.FedPFTConfig()
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+
+    def acc(head):
+        return float(H.accuracy(head, ft, yt))
+
+    head_c, info_c = FP.centralized_baseline([src, dst], C, cfg, seed=0)
+    out = {"centralized": (acc(head_c), info_c["comm_bytes"])}
+    h_src, h_dst = (B.local_train(H.init_head(d, C, generator=g, device=dev),
+                                  f, y, C, n_steps=200, lr=3e-3, generator=g)
+                    for f, y in (src, dst))
+    hb = B.head_comm_bytes(d, C)
+    out["ensemble"] = (float((B.ensemble_predict([h_src, h_dst], ft) == yt)
+                             .float().mean()), hb)
+    out["avg"] = (acc(B.avg_heads([h_src, h_dst])), hb)
+    out["kd"] = (acc(B.kd_transfer(h_src, h_dst, fd, yd, C, n_steps=200,
+                                   generator=g)), hb)
+    msgs, infos = DC.run_chain([src, dst], C, cfg, seed=0)
+    out["fedpft"] = (acc(infos[-1]["head"]), msgs[0].comm_bytes)
+    return out
+
+
+def slice6_paths(torch, dev, card, kept):
+    """The §5.3 shifts, streaming ingest, the round-program cache and a
+    chaos round, on hubert-xlarge's full-depth features (the covariate and
+    task shifts through the encoder on their own inputs).  Returns each
+    path's launch counts."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import data as D
+    from repro_torch.core import gmm as G
+    from repro_torch.core import head as H
+    from repro_torch.fl import api as A
+    from repro_torch.fl import faults as FJ
+    from repro_torch.fl import ingest as IG
+    from repro_torch.fl import resilience as RS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import aot_cache as AC
+
+    feats, feats_t, y, yt = (kept[k] for k in ("feats", "feats_t", "y",
+                                               "yt"))
+    features_of = kept["features_of"]
+    C = 10
+    out = {}
+
+    def check(cond, what):
+        if not cond:
+            raise AssertionError(what)
+
+    def byte_law(acct):
+        return sum(acct[k] for k in (
+            "admitted_bytes", "late_bytes", "duplicate_bytes",
+            "over_cap_bytes", "quarantined_bytes", "closed_bytes")) \
+            == acct["sent_bytes"]
+
+    def same_head(a, b):
+        return all(torch.equal(a[k], b[k]) for k in ("w", "b"))
+
+    def on_card(x, labels):
+        return features_of(x), torch.from_numpy(np.asarray(labels)).to(dev)
+
+    # ---- shifts: Table 2's three two-client shifts
+    def shifts():
+        rows = {}
+        y_np = y.cpu().numpy()
+        src, dst = D.disjoint_label_split(y_np)
+        rows["label"] = shift_methods(
+            torch, dev, (feats[src], y[src]), (feats[dst], y[dst]),
+            (feats_t, yt), C)
+        cov_cfg = D.DatasetConfig(n_classes=C, n_per_class=200,
+                                  input_dim=512, class_sep=3.0, n_domains=2)
+        (xa, ya), (xb, yb) = D.covariate_shift_pair(cov_cfg)
+        test_cfg = dataclasses.replace(cov_cfg, n_per_class=50)
+        tests = [D.make_dataset(test_cfg, domain=k, split=1) for k in (0, 1)]
+        xt = np.concatenate([t[0] for t in tests])
+        ytc = np.concatenate([t[1] for t in tests])
+        rows["covariate"] = shift_methods(
+            torch, dev, on_card(xa, ya), on_card(xb, yb), on_card(xt, ytc),
+            C)
+        ta = D.DatasetConfig(n_classes=5, n_per_class=200, input_dim=512,
+                             class_sep=3.0)
+        tb = dataclasses.replace(ta, seed=1)
+        (xa, ya), (xb, yb), C_ab = D.task_shift_pair(ta, tb)
+        xta, yta = D.make_dataset(dataclasses.replace(ta, n_per_class=50),
+                                  split=1)
+        xtb, ytb = D.make_dataset(dataclasses.replace(
+            tb, n_per_class=50, seed=tb.seed + 7919), split=1)
+        rows["task"] = shift_methods(
+            torch, dev, on_card(xa, ya), on_card(xb, yb),
+            on_card(np.concatenate([xta, xtb]),
+                    np.concatenate([yta, ytb + ta.n_classes])), C_ab)
+        return rows
+
+    rows, dt, counts, peak = measured(torch, ops, shifts)
+    emit({"phase": "shifts", "card": card, "phase_s": dt,
+          "rows": {s: {m: {"acc": a, "bytes": b} for m, (a, b) in r.items()}
+                   for s, r in rows.items()},
+          "launches": {**launch_fields(counts),
+                       "flash_attention": counts["flash_attention"]},
+          "peak_bytes": peak})
+    for shift, r in rows.items():
+        check(r["fedpft"][0] >= r["centralized"][0] - 0.08,
+              f"shifts/{shift}: FedPFT {r['fedpft'][0]} < centralized "
+              f"{r['centralized'][0]} − 0.08")
+    check(counts["flash_attention"] > 0, "shifts: no flash launch")
+    check(launch_fields(counts)["plain_on_cuda"] == 0, "shifts: plain ran")
+    out["hubert-xlarge/shifts"] = counts
+
+    # ---- ingest: the streaming round against the fused Star round
+    gcfg = G.GMMConfig()
+    clients = [(feats[p], y[p]) for p in D.iid_shards(len(y), 4)]
+    clients12 = [(feats[p], y[p]) for p in D.iid_shards(len(y), 12)]
+
+    def session(**kw):
+        return A.FedSession(n_classes=C, summarizer=A.GMMSummarizer(gcfg),
+                            **kw)
+
+    icfg = IG.IngestConfig(capacity=64, chunk_size=2)
+    fused = session().run(clients, seed=0)
+
+    def ingest():
+        return (session(ingest=icfg).run(clients, seed=0),
+                session(ingest=icfg).run(clients12, seed=0))
+    (stream, stream12), dt, counts, peak = measured(torch, ops, ingest)
+    acct, acct12 = stream.info["ingest"], stream12.info["ingest"]
+    state_bytes = IG.IngestState.empty(C, "diag", gcfg.n_components,
+                                       int(feats.shape[1]), 64).nbytes
+    msg_bytes = max(IG.IngestBroker._message_bytes(m)
+                    for m in fused.messages)
+    emit({"phase": "ingest", "card": card, "phase_s": dt,
+          "bitwise_fused": same_head(stream.model, fused.model),
+          "accounting": acct, "accounting_12": acct12,
+          "state_bytes": state_bytes, "pending_message_bytes": msg_bytes,
+          "acc": float(H.accuracy(stream.model, feats_t, yt)),
+          "acc_fused": float(H.accuracy(fused.model, feats_t, yt)),
+          "acc_12": float(H.accuracy(stream12.model, feats_t, yt)),
+          "launches": launch_fields(counts), "peak_bytes": peak})
+    check(same_head(stream.model, fused.model),
+          "ingest: the streaming head is not bitwise the fused head")
+    check(byte_law(acct) and byte_law(acct12), "ingest: byte law broken")
+    check(acct["sent_bytes"] == fused.info["comm_bytes"],
+          "ingest: sent bytes ≠ the fused round's bytes")
+    check(acct["slots_evicted"] == 0 and acct["slots_retained"] == 40,
+          f"ingest: {acct['slots_retained']} slots kept")
+    check(acct12["slots_seen"] == 120 and acct12["slots_evicted"] == 56,
+          f"ingest: {acct12['slots_evicted']} of {acct12['slots_seen']} "
+          "slots evicted, not 56 of 120")
+    check(acct12["peak_resident_bytes"]
+          <= state_bytes + icfg.chunk_size * msg_bytes,
+          f"ingest: peak {acct12['peak_resident_bytes']} B over the state "
+          "and one pending chunk")
+    check(launch_fields(counts)["plain_on_cuda"] == 0, "ingest: plain ran")
+    out["hubert-xlarge/ingest"] = counts
+
+    # ---- program_cache: captured round programs against the eager server
+    def program_cache():
+        cache = AC.ProgramCache()
+        cached = session(program_cache=cache)
+        eager = session()
+        msgs = fused.messages
+        rows = {}
+        for M in (3, 4):
+            gen = A.round_generator(0, 0, dev)
+            m0 = torch.cuda.memory_allocated()
+            res = cached.server_aggregate(msgs[:M], generator=gen,
+                                          device=dev)
+            rows[M] = dict(res.info["compile"],
+                           allocated_delta=torch.cuda.memory_allocated()
+                           - m0, model=res.model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = eager.server_aggregate(msgs[:3],
+                                      generator=A.round_generator(0, 0, dev),
+                                      device=dev)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        replay = cached.server_aggregate(
+            msgs[:3], generator=A.round_generator(0, 0, dev), device=dev)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        entry = cache.entries()[0]
+        warm = cache.warmup(AC.serving_grid(64, C, gcfg.n_components,
+                                            int(feats.shape[1])),
+                            session().head)
+        before = cache.snapshot()
+        streamed = session(ingest=icfg, program_cache=cache).run(clients,
+                                                                 seed=0)
+        return (rows, want, replay, eager_s, replay_s, entry, warm,
+                cache.delta(before), streamed, cache)
+    (rows, want, replay, eager_s, replay_s, entry, warm, delta, streamed,
+     cache), dt, counts, peak = measured(torch, ops, program_cache)
+    stats = cache.stats()
+    slot_entry = streamed.info["compile"]
+    emit({"phase": "program_cache", "card": card, "phase_s": dt,
+          "rounds": {M: {k: v for k, v in r.items() if k != "model"}
+                     for M, r in rows.items()},
+          "capture_s": entry.compile_us / 1e6,
+          "entry_memory_bytes": entry.memory_bytes,
+          "eager_server_s": eager_s, "replay_server_s": replay_s,
+          "replay_run_s": replay.info["compile"]["run_us"] / 1e6,
+          "speedup": eager_s / replay_s,
+          "bitwise_eager_m3": same_head(rows[3]["model"], want.model),
+          "bitwise_replay": same_head(replay.model, want.model),
+          "warm_streaming": {"hit": slot_entry["hit"],
+                             "run_s": slot_entry["run_us"] / 1e6,
+                             "bitwise_eager_streaming": same_head(
+                                 streamed.model, stream.model)},
+          "warmup_stats": warm, "delta": delta, "stats": stats,
+          "cache_memory_bytes": cache.memory_bytes,
+          "cache_max_bytes": cache.max_bytes,
+          "launches": launch_fields(counts), "peak_bytes": peak})
+    check(not rows[3]["hit"] and rows[4]["hit"] and rows[3]["aot"],
+          f"program_cache: M = 3 then 4 gave hits {rows[3]['hit']}, "
+          f"{rows[4]['hit']}")
+    check(rows[4]["cache"]["misses"] == 1 and rows[4]["cache"]["compiles"]
+          == 1 and rows[4]["cache"]["hits"] == 1,
+          f"program_cache: {rows[4]['cache']} after M = 3, 4")
+    check(same_head(rows[3]["model"], want.model)
+          and same_head(replay.model, want.model),
+          "program_cache: the cached head is not bitwise the eager head")
+    check(same_head(streamed.model, stream.model),
+          "program_cache: the cached streaming head is not bitwise the "
+          "eager streaming head")
+    check(delta["compiles"] == 0 and slot_entry["hit"],
+          f"program_cache: the warm streaming round moved {delta}")
+    check(stats["jit_fallbacks"] == 0,
+          f"program_cache: {stats['jit_fallbacks']} capture fallbacks")
+    check(0 < cache.memory_bytes <= cache.max_bytes,
+          f"program_cache: entries hold {cache.memory_bytes} B, bound "
+          f"{cache.max_bytes} B")
+    check(replay_s < eager_s, f"program_cache: replay {replay_s} s not "
+          f"under the eager server's {eager_s} s")
+    check(launch_fields(counts)["plain_on_cuda"] == 0,
+          "program_cache: plain ran")
+    out["hubert-xlarge/program_cache"] = counts
+
+    # ---- chaos: the 12 clients under a fault plan; partial ≡ survivors
+    plan = FJ.FaultPlan(seed=11, drop=0.2, corrupt=0.15, straggle=0.2,
+                        straggle_delay_s=100.0, transient=0.2)
+    ccfg = IG.IngestConfig(deadline_s=5.0)
+    chaos_sess = session(ingest=ccfg,
+                         resilience=RS.ResilienceConfig(max_retries=2))
+
+    def chaos():
+        return chaos_sess.run(clients12, seed=0, faults=plan)
+    res, dt, counts, peak = measured(torch, ops, chaos)
+    faults, acct = res.info["faults"], res.info["ingest"]
+    surv = faults["admitted_clients"]
+    broker = IG.IngestBroker(ccfg, C, clock=lambda: 0.0)
+    for i in surv:
+        f, yy = clients12[i]
+        broker.submit(i, chaos_sess.client_update(
+            f, yy, i, generator=A.round_generator(0, 1 + i, dev),
+            device=dev))
+    off = chaos_sess.aggregate_from_broker(broker, seed=0)
+    emit({"phase": "chaos", "card": card, "phase_s": dt,
+          "faults": faults, "accounting": acct,
+          "bitwise_offline_survivors": same_head(res.model, off.model),
+          "acc": float(H.accuracy(res.model, feats_t, yt)),
+          "launches": launch_fields(counts), "peak_bytes": peak})
+    check(0 < len(surv) < 12, f"chaos: {len(surv)} of 12 admitted")
+    check(byte_law(acct), "chaos: byte law broken")
+    check(faults["degraded"], "chaos: round not marked degraded")
+    check(same_head(res.model, off.model),
+          "chaos: the partial head is not bitwise the offline survivors'")
+    check(launch_fields(counts)["plain_on_cuda"] == 0, "chaos: plain ran")
+    out["hubert-xlarge/chaos"] = counts
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -890,6 +1187,7 @@ def main() -> int:
         counts[name] = main_path(torch, dev, card, name, keep)
         if keep is not None:
             counts.update(slice_paths(torch, dev, card, keep))
+            counts.update(slice6_paths(torch, dev, card, keep))
             keep.clear()
 
     sources = {"estep_fused": ("src/repro_torch/kernels/csrc/gmm_estep.cu",

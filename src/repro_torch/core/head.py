@@ -198,6 +198,17 @@ def train_head_streaming(chunks, n_classes: int, cfg: HeadConfig, *,
     return params, _stack(losses, dev)
 
 
+def categorical(probs: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One index per row of ``probs`` (n, K), ∝ the row: the exponential
+    race argmax(p / E), E ~ Exp(1).  This is what
+    ``torch.multinomial(probs, 1)`` computes, draw for draw, without the
+    argument checks that wait on the device, so it can run inside a CUDA
+    graph capture."""
+    race = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return (probs / race).argmax(-1)
+
+
 @torch.no_grad()
 def fused_gmm_steps(pi, mu, cov, slot_labels, counts, n_classes: int,
                     cfg: HeadConfig, cov_type: str, *,
@@ -213,6 +224,15 @@ def fused_gmm_steps(pi, mu, cov, slot_labels, counts, n_classes: int,
 
     ``draws`` replaces every draw: ``init`` (d, C), ``slot_all`` and
     ``comp_all`` (n_steps·batch,), ``eps`` (n_steps, batch, d).
+
+    Nothing in the step loop waits on the device (the component draw is
+    :func:`categorical`, the losses fill a preallocated (n_steps,)
+    tensor, the Adam bias corrections are host floats of the step count),
+    so for diag and spher mixtures the whole call can be captured as one
+    CUDA graph (``launch.aot_cache``); with the draws from the default
+    CUDA generator a replay makes the draws an eager call makes.  Full
+    covariance groups its draws by data-dependent sizes and cannot be
+    captured.
     """
     bs, d = cfg.batch_size, mu.shape[-1]
     dev = mu.device
@@ -224,8 +244,8 @@ def fused_gmm_steps(pi, mu, cov, slot_labels, counts, n_classes: int,
         cum_mass = torch.cumsum(mass, 0) / mass.sum().clamp_min(1e-9)
         u = torch.rand((cfg.n_steps * bs,), generator=generator, device=dev)
         slot_all = G.draw_slots(u, cum_mass)
-        probs = pi.float().clamp_min(1e-20)[slot_all]
-        comp_all = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        comp_all = categorical(pi.float().clamp_min(1e-20)[slot_all],
+                               generator)
         init = None
     else:
         slot_all = draws["slot_all"].to(dev).long()
@@ -236,7 +256,7 @@ def fused_gmm_steps(pi, mu, cov, slot_labels, counts, n_classes: int,
     opt = optim.adam(cfg.lr, weight_decay=cfg.weight_decay)
     opt_state = opt.init(params)
     ones = torch.ones((bs,), dtype=torch.float32, device=dev)
-    losses = []
+    losses = torch.empty((cfg.n_steps,), dtype=torch.float32, device=dev)
     step = 0
     for width in [W] * n_win + ([tail] if tail else []):
         sl = slot_all[step * bs:(step + width) * bs].reshape(width, bs)
@@ -249,11 +269,10 @@ def fused_gmm_steps(pi, mu, cov, slot_labels, counts, n_classes: int,
         x = G.slot_gaussian(sl, cm, eps, mu, fac, cov_type)   # (W', bs, d)
         y = slot_labels[sl]
         for i in range(width):
-            params, opt_state, loss = _adam_step(params, opt_state, opt,
-                                                 x[i], y[i], ones)
-            losses.append(loss)
+            params, opt_state, losses[step + i] = _adam_step(
+                params, opt_state, opt, x[i], y[i], ones)
         step += width
-    return params, _stack(losses, dev)
+    return params, losses
 
 
 def train_head_from_gmms(pi, mu, cov, slot_labels, counts, n_classes: int,

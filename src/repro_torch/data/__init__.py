@@ -1,7 +1,9 @@
 """Synthetic class-structured datasets and FL partitioners, in numpy.
 
 A copy of the numpy parts of ``repro/data/__init__.py``: the same seeds give
-bit-identical datasets and client splits.  ``make_dataset`` returns numpy
+bit-identical datasets and client splits, the §5.3 shift splits
+(``disjoint_label_split``, ``covariate_shift_pair``, ``task_shift_pair``)
+included.  ``make_dataset`` returns numpy
 arrays; callers move them to a device.  See DESIGN.md §6 for why synthetic
 class-Gaussian data stands in for the paper's image datasets.
 """
@@ -72,3 +74,30 @@ def iid_shards(n: int, n_clients: int, seed: int = 0) -> List[np.ndarray]:
     rng = np.random.RandomState(seed)
     perm = rng.permutation(n)
     return [np.sort(s) for s in np.array_split(perm, n_clients)]
+
+
+def disjoint_label_split(labels) -> Tuple[np.ndarray, np.ndarray]:
+    """§5.3 label shift: source gets classes [0, C/2), destination the rest."""
+    labels = np.asarray(labels)
+    C = int(labels.max()) + 1
+    src = np.where(labels < C // 2)[0]
+    dst = np.where(labels >= C // 2)[0]
+    return src, dst
+
+
+def covariate_shift_pair(cfg: DatasetConfig):
+    """§5.3 covariate shift: same classes, two maximally distinct domains."""
+    if cfg.n_domains < 2:
+        raise ValueError(f"covariate_shift_pair: n_domains={cfg.n_domains} "
+                         "— a covariate shift needs two domains")
+    return make_dataset(cfg, domain=0), make_dataset(cfg, domain=1)
+
+
+def task_shift_pair(cfg_a: DatasetConfig, cfg_b: DatasetConfig,
+                    ) -> Tuple[Tuple, Tuple, int]:
+    """§5.3 task shift: two disjoint datasets; labels of B are offset so the
+    union is one C_a + C_b-way problem (Birds→Cars style)."""
+    xa, ya = make_dataset(cfg_a)
+    xb, yb = make_dataset(dataclasses.replace(cfg_b, seed=cfg_b.seed + 7919))
+    yb = yb + cfg_a.n_classes
+    return (xa, ya), (xb, yb), cfg_a.n_classes + cfg_b.n_classes

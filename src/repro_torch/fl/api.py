@@ -8,13 +8,15 @@ topology (``Star``: clients → server; ``Chain``: client i → i + 1, §4.2;
 ``Ring``: a chain with wraparound laps) and an optional DP hook applied
 to the summary before encoding (Theorem 4.1).
 
-The server trains the head straight from the decoded mixture-slot stack
-by default (``synthesis="fused"``, ``core.head.train_head_from_gmms``).
+The server trains the head straight from the decoded mixture slots by
+default (``synthesis="fused"``: ``fl.round.round_program`` over the
+cohort's M·C slot grid, eager or from the program cache).
 ``"streamed"`` materializes the count-stratified planner's buckets as
 chunks (:func:`synthesize_chunks`) and streams them into
 ``core.head.train_head_streaming``; ``"pooled"`` concatenates them and
-trains on the pool.  A cohort of mixed K or covariance family cannot
-stack into one slot tensor and falls back to ``"pooled"``.  Head
+trains on the pool.  A cohort of mixed K, covariance family or wire
+dtype has no one signature (``fl.round.signature_of``) and falls back to
+``"pooled"``.  Head
 messages are aggregated instead (``aggregate="avg" | "ensemble" |
 "fedbe"``).
 
@@ -24,13 +26,29 @@ into the codec dtype, fields in ``gmm.WIRE_FIELDS`` order.  bf16 rounding
 goes through ``torch`` (``.to(torch.bfloat16)`` is round-to-nearest-even,
 as ``ml_dtypes`` is).
 
-Draws come from one ``torch.Generator`` per run; every sampling function
-also takes its draws as tensors (JAX's threefry and torch's Philox never
-match stream for stream), so tests can feed the reference's.
+Draws: a Star round gives the server and every client a
+``torch.Generator`` of its own, each seeded by a pure function of the
+round's seed and its index (:func:`round_generator`: 0 the server, 1 + i
+client i, through splitmix64), as the reference splits its key into
+``keys[0]`` and ``keys[1 + i]``.  So a client's message does not depend on
+which other clients ran, failed or were retried, and the laws that rest
+on that hold: streaming ≡ fused (DESIGN §9), and a partial round ≡ an
+offline round over the survivors (§13).  A Chain relays one stream from
+client to client.  Every sampling function also takes its draws as
+tensors (JAX's threefry and torch's Philox never match stream for
+stream), so tests can feed the reference's.
+
+Around the Star round (DESIGN §9, §11, §13): ``ingest=IngestConfig(...)``
+streams the messages through ``fl.ingest.IngestBroker`` into a
+fixed-capacity slot reservoir; ``program_cache=ProgramCache(...)`` runs
+the fused server as a captured CUDA graph per canonical cohort signature
+(``launch.aot_cache``); ``resilience=ResilienceConfig(...)`` retries
+transient client failures and quarantines malformed messages;
+``run(..., faults=FaultPlan(...))`` runs the streaming round under a
+deterministic fault schedule (``fl.faults``).
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: streaming ingest and the round-program cache (item 4),
-resilience (item 5), mesh execution (item 9).
+ROADMAP item: mesh execution (item 9).
 """
 from __future__ import annotations
 
@@ -46,7 +64,10 @@ from repro_torch.core import dp as DP
 from repro_torch.core import gmm as G
 from repro_torch.core import head as H
 from repro_torch.fl import baselines as FB
+from repro_torch.fl import ingest as IG
 from repro_torch.fl import planner as P
+from repro_torch.fl import resilience as RS
+from repro_torch.fl import round as FR
 
 __all__ = [
     "QuantizedCodec", "WireHeader", "ClientMessage", "GMMSummarizer",
@@ -54,6 +75,7 @@ __all__ = [
     "SYNTHESIS_MODES", "encode_message", "decode_payload", "stack_messages",
     "fused_slot_stack", "synthesize_batched", "synthesize_chunks",
     "synthesize_group_chunks", "synthesize_groups", "synthesize_looped",
+    "round_generator",
 ]
 
 SYNTHESIS_MODES = ("fused", "streamed", "pooled")
@@ -78,6 +100,18 @@ def _later(what: str, item: str) -> NotImplementedError:
 # ---------------------------------------------------------------------------
 
 
+def _bf16_nan_bits(x: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """bf16 bits of ``x`` with every NaN as the quiet NaN of its sign
+    (0x7FC0 / 0xFFC0), as ``ml_dtypes`` rounds NaN; torch's own NaN bits
+    depend on the conversion path (0xFFFF on the CPU's vector path)."""
+    nan = torch.isnan(x)
+    if not bool(nan.any()):
+        return bits
+    quiet = torch.where(torch.signbit(x), torch.tensor(-64, dtype=torch.int16),
+                        torch.tensor(0x7FC0, dtype=torch.int16))
+    return torch.where(nan, quiet, bits)
+
+
 @dataclasses.dataclass(frozen=True)
 class QuantizedCodec:
     """fp16 / bf16 / fp32 wire codec over flat parameter dicts.
@@ -100,10 +134,12 @@ class QuantizedCodec:
         wd = _WIRE_DTYPES[self.dtype]
         out = []
         for f in fields:
-            t = torch.as_tensor(arrays[f]).detach().float().cpu() \
-                .contiguous().to(wd)
-            out.append(t.view(torch.int16 if wd.itemsize == 2
-                              else torch.int32).numpy().tobytes())
+            x = torch.as_tensor(arrays[f]).detach().float().cpu().contiguous()
+            bits = x.to(wd).view(torch.int16 if wd.itemsize == 2
+                                 else torch.int32)
+            if wd == torch.bfloat16:
+                bits = _bf16_nan_bits(x, bits)
+            out.append(bits.numpy().tobytes())
         return b"".join(out)
 
     def decode(self, payload: bytes, shapes: Dict[str, Tuple[int, ...]],
@@ -588,32 +624,75 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def round_generator(seed: int, index: int, device) -> torch.Generator:
+    """The draw stream ``index`` of a round seeded ``seed``: 0 is the
+    server's, 1 + i client i's.  Its seed is splitmix64 of the round's
+    seed mixed with the index, a pure function of both, so each stream
+    can be rebuilt alone (a retried client, an offline replay of the
+    survivors)."""
+    x = np.asarray([seed], np.uint64)
+    h = IG._splitmix64(IG._splitmix64(x) ^ np.uint64(index))
+    g = torch.Generator(device=device)
+    g.manual_seed(int(h[0] >> np.uint64(1)))
+    return g
+
+
+def _fault_stats() -> Dict:
+    """The client phase's retry ledger (one per round): what lands in
+    ``info["faults"]`` beside the broker's verdict accounting."""
+    return {"attempts": 0, "retries": 0, "backoff_s": 0.0, "failed": []}
+
+
+def _merge_fault_info(info: Dict, acct: Dict,
+                      expected: Optional[int] = None) -> None:
+    """Fold broker accounting into ``info["faults"]``: coverage against the
+    expected cohort and the ``degraded`` flag (any loss — missing,
+    quarantined, late or after close — marks the round partial).  Keeps
+    the client-phase retry stats already there."""
+    if expected is None:
+        expected = acct["clients_seen"]
+    coverage = acct["admitted"] / expected if expected else 1.0
+    degraded = (acct["admitted"] < expected or acct["quarantined"] > 0
+                or acct["late"] > 0 or acct["closed"] > 0)
+    faults = info.setdefault("faults", {})
+    faults.update(degraded=bool(degraded), coverage=float(coverage),
+                  expected_clients=int(expected))
+
+
 @dataclasses.dataclass(frozen=True)
 class Star:
-    """Clients → server, one shot (Algorithm 1)."""
+    """Clients → server, one shot (Algorithm 1).  Client i draws from
+    ``round_generator(seed, 1 + i)``, the server from
+    ``round_generator(seed, 0)``."""
     name = "star"
 
-    def run(self, session: "FedSession", client_datasets, *,
-            generator: torch.Generator, device: torch.device
-            ) -> SessionResult:
+    def run(self, session: "FedSession", client_datasets, *, seed: int,
+            device: torch.device) -> SessionResult:
         phase = {"client_fit_s": 0.0, "encode_s": 0.0}
+        stats = _fault_stats()
         messages = []
         for i, (f, y) in enumerate(client_datasets):
-            t0 = time.perf_counter()
-            params, counts, lls = session.client_summary(
-                f, y, i, generator=generator, device=device)
-            _sync(device)
-            t1 = time.perf_counter()
-            messages.append(session.encode(params, counts, lls, i))
-            t2 = time.perf_counter()
-            phase["client_fit_s"] += t1 - t0
-            phase["encode_s"] += t2 - t1
+            msg = session._client_attempt(f, y, i, stats, seed=seed,
+                                          device=device, phase=phase)
+            if msg is None:
+                # no broker in a non-streaming round: nothing can absorb
+                # a lost client, so exhausted retries fail the round
+                raise RS.TransientClientError(
+                    f"client {i} still failing after "
+                    f"{session.resilience.max_retries + 1} attempts — "
+                    "use FedSession(ingest=...) to degrade instead")
+            messages.append(msg)
         t0 = time.perf_counter()
-        result = session.server_aggregate(messages, generator=generator,
-                                          device=device)
+        result = session.server_aggregate(
+            messages, generator=round_generator(seed, 0, device),
+            device=device)
         _sync(device)
         phase["server_s"] = time.perf_counter() - t0
         result.info["phase_s"] = phase
+        if stats["retries"]:
+            result.info.setdefault("faults", {}).update(
+                attempts=stats["attempts"], retries=stats["retries"],
+                backoff_s=stats["backoff_s"])
         return result
 
 
@@ -626,9 +705,10 @@ class Chain:
     laps: int = 1
     name = "chain"
 
-    def run(self, session: "FedSession", client_datasets, *,
-            generator: torch.Generator, device: torch.device
-            ) -> SessionResult:
+    def run(self, session: "FedSession", client_datasets, *, seed: int,
+            device: torch.device) -> SessionResult:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(seed)
         received = None
         messages, infos = [], []
         for i in list(range(len(client_datasets))) * self.laps:
@@ -669,7 +749,12 @@ class FedSession:
 
     ``run`` is the entry point: on ``cuda`` unless ``device="cpu"``.
     ``client_summarizers`` gives each client its own summarizer (mixed K
-    or covariance family, paper §6.3).
+    or covariance family, paper §6.3).  ``ingest`` (an
+    ``fl.ingest.IngestConfig``) streams a Star round through the broker;
+    ``program_cache`` (a ``launch.aot_cache.ProgramCache``) serves the
+    fused server from captured round programs; ``resilience`` (an
+    ``fl.resilience.ResilienceConfig``) retries transient client failures
+    and quarantines malformed messages.
     """
     n_classes: int
     summarizer: Any = GMMSummarizer()
@@ -683,25 +768,15 @@ class FedSession:
     client_summarizers: Optional[Tuple[Any, ...]] = None
     min_class_count: int = 0
     synthesis: str = "fused"       # one of SYNTHESIS_MODES
-    ingest: Optional[Any] = None
+    ingest: Optional[IG.IngestConfig] = None
     program_cache: Optional[Any] = None
-    resilience: Optional[Any] = None
+    resilience: Optional[RS.ResilienceConfig] = None
     mesh: Any = None
     shards: Optional[int] = None
 
     def _check_supported(self) -> None:
-        refused = [
-            (self.ingest is not None, "streaming ingest",
-             "item 4, ingest and round cache"),
-            (self.program_cache is not None, "the round-program cache",
-             "item 4, ingest and round cache"),
-            (self.resilience is not None, "resilience", "item 5, faults"),
-            (self.mesh is not None or self.shards is not None,
-             "mesh execution", _MESH_ITEM),
-        ]
-        for bad, what, item in refused:
-            if bad:
-                raise _later(what, item)
+        if self.mesh is not None or self.shards is not None:
+            raise _later("mesh execution", _MESH_ITEM)
 
     def summarizer_for(self, i: int):
         if self.client_summarizers is not None:
@@ -745,6 +820,56 @@ class FedSession:
         return encode_message(params, counts, lls, kind=summ.kind,
                               cov_type=summ.cov_type,
                               n_classes=self.n_classes, codec=self.codec)
+
+    def client_update(self, feats, labels, i: int = 0, *,
+                      generator: torch.Generator, device: torch.device,
+                      phase: Optional[Dict] = None) -> ClientMessage:
+        """Client ``i``'s summary, encoded: its wire message.  ``phase``,
+        when given, accumulates the fit and encode wall times."""
+        t0 = time.perf_counter()
+        params, counts, lls = self.client_summary(
+            feats, labels, i, generator=generator, device=device)
+        _sync(device)
+        t1 = time.perf_counter()
+        msg = self.encode(params, counts, lls, i)
+        if phase is not None:
+            phase["client_fit_s"] += t1 - t0
+            phase["encode_s"] += time.perf_counter() - t1
+        return msg
+
+    def _client_attempt(self, feats, labels, i: int, stats: Dict, *,
+                        seed: int, device: torch.device, client_fn=None,
+                        advance=None, phase: Optional[Dict] = None):
+        """Client ``i``'s message under the session's retry contract.
+
+        Every attempt draws from a fresh ``round_generator(seed, 1 + i)``,
+        so a replay sends the message a clean first attempt would have.
+        With ``resilience`` set, :class:`~repro_torch.fl.resilience
+        .TransientClientError` replays the attempt up to ``max_retries``
+        times, backoff accounted on ``advance``.  Returns None when the
+        client exhausted its attempts; the caller decides whether that
+        drops the client (streaming and chaos rounds) or fails the round
+        (Star).  ``client_fn`` (``client_update``'s signature) lets the
+        chaos round wrap the client in a fault injector.
+        """
+        fn = self.client_update if client_fn is None else client_fn
+
+        def attempt():
+            return fn(feats, labels, i,
+                      generator=round_generator(seed, 1 + i, device),
+                      device=device, phase=phase)
+        if self.resilience is None:
+            stats["attempts"] += 1
+            return attempt()
+        ok, msg, attempts, backoff = RS.call_with_retry(
+            attempt, self.resilience, advance=advance)
+        stats["attempts"] += attempts
+        stats["retries"] += attempts - 1
+        stats["backoff_s"] += backoff
+        if not ok:
+            stats["failed"].append(i)
+            return None
+        return msg
 
     def chain_step(self, feats, labels, i: int,
                    received: Optional[ClientMessage], *,
@@ -796,23 +921,15 @@ class FedSession:
                 f"one of {SYNTHESIS_MODES}")
         return self.synthesis
 
-    def _fused_slot_stack(self, messages: Sequence[ClientMessage]):
-        """The fused path's slot stack, or None for a heterogeneous cohort
-        (mixed K / cov family, §6.3) that cannot stack into one tensor."""
-        sigs = {(m.header.cov_type,) + tuple(
-            tuple(m.params[f].shape) for f in _GMM_FIELDS) for m in messages}
-        if len(sigs) > 1:
-            return None
-        return fused_slot_stack(stack_messages(messages),
-                                np.stack([m.counts for m in messages]),
-                                self.samples_per_class)
-
     def _empty_cohort_result(self, info: Dict, messages, *,
                              generator: torch.Generator,
-                             device: torch.device) -> SessionResult:
+                             device: torch.device,
+                             d: Optional[int] = None) -> SessionResult:
         """Every class filtered out: a cleanly initialized head instead of
-        training on a 0-row pool."""
-        d = messages[0].header.d
+        training on a 0-row pool.  ``d`` gives the feature dim to callers
+        that hold no message (the streaming round)."""
+        if d is None:
+            d = messages[0].header.d
         info.update(synthetic_feats=torch.zeros((0, d), device=device),
                     synthetic_labels=torch.zeros((0,), dtype=torch.long,
                                                  device=device),
@@ -831,28 +948,34 @@ class FedSession:
         info: Dict = {"comm_bytes": sum(m.comm_bytes for m in messages)}
         if messages[0].header.kind != "gmm":
             return self._aggregate_heads(messages, info, generator=generator)
+        if self.ingest is not None:
+            return self._ingest_aggregate(messages, info,
+                                          generator=generator, device=device)
         mode = self._synthesis_mode()
-        fused = None
+        if self.resilience is not None and self.resilience.validate:
+            # the wire-level quarantine (§13): drop malformed or
+            # non-finite messages with a record instead of crashing
+            d0 = int(messages[0].header.d)
+            kept, rejs = RS.partition_valid(messages, self.n_classes)
+            if rejs:
+                info["quarantined"] = [dataclasses.asdict(r) for r in rejs]
+                info["quarantined_bytes"] = sum(r.comm_bytes for r in rejs)
+                info["faults"] = {"degraded": True,
+                                  "coverage": len(kept) / len(messages)}
+                if not kept:
+                    return self._empty_cohort_result(
+                        info, [], generator=generator, device=device, d=d0)
+                messages = kept
         if mode == "fused":
-            fused = self._fused_slot_stack(messages)
-            if fused is None:
+            try:
+                sig = FR.signature_of(messages)
+            except ValueError:      # no one signature (§6.3)
                 mode = "pooled"
                 info["synthesis_fallback"] = "heterogeneous cohort"
+            else:
+                return self._fused_round(messages, sig, info,
+                                         generator=generator, device=device)
         info["synthesis"] = mode
-        if mode == "fused":
-            stack, slot_labels, slot_counts, plan = fused
-            info["synthesis_plans"] = [plan]
-            if len(plan.slot_table) == 0:
-                return self._empty_cohort_result(
-                    info, messages, generator=generator, device=device)
-            head_params, losses = H.train_head_from_gmms(
-                stack["pi"], stack["mu"], stack["cov"], slot_labels,
-                slot_counts, self.n_classes, self.head,
-                messages[0].header.cov_type, device=device,
-                generator=generator)
-            info["head_losses"] = losses
-            return SessionResult(model=head_params, info=info,
-                                 messages=list(messages))
         chunks, plans = synthesize_group_chunks(
             [(m.params, m.counts, m.header.cov_type) for m in messages],
             self.samples_per_class, generator=generator)
@@ -872,6 +995,266 @@ class FedSession:
                         head_losses=losses)
         return SessionResult(model=head_params, info=info,
                              messages=list(messages))
+
+    # -- the fused server: one round program (DESIGN.md §11) -----------------
+
+    def _run_round(self, sig, args, info: Dict,
+                   samples_per_class: Optional[int], *,
+                   generator: torch.Generator, device: torch.device):
+        """``fl.round.round_program`` for ``sig`` on ``args`` (pi, mu, cov,
+        counts, slot_labels), its draws from ``generator``.  Without a
+        program cache it runs eagerly on ``device``.  With one, the
+        caller has padded ``args`` to ``sig.canonical()`` (leading count-0
+        ``gmm.identity_gmm`` rows, never drawn: the head is the unpadded
+        program's bit for bit), the cache's entry runs them, and
+        ``info["compile"]`` records hit or miss, capture against replay
+        time, the capture time spread over the rounds the entry served,
+        and the cache's counters."""
+        cache = self.program_cache
+        if cache is None:
+            args = [None if a is None else torch.as_tensor(a).to(device)
+                    for a in args]
+            return FR.round_program(*args, sig=sig, head_cfg=self.head,
+                                    samples_per_class=samples_per_class,
+                                    generator=generator)
+        hits0 = cache.hits
+        prog = cache.get(sig, self.head, samples_per_class=samples_per_class,
+                         device=device)
+        t0 = time.perf_counter()
+        head_params, losses = prog(*args, generator=generator)
+        _sync(device)
+        run_us = (time.perf_counter() - t0) * 1e6
+        info["compile"] = {
+            "hit": cache.hits > hits0, "aot": prog.aot,
+            "signature": dataclasses.astuple(sig),
+            "canonical": dataclasses.astuple(prog.sig),
+            "compile_us": prog.compile_us, "run_us": run_us,
+            "amortized_us": prog.compile_us / max(prog.uses, 1) + run_us,
+            "cache": cache.stats(),
+        }
+        if prog.eager_reason is not None:
+            info["compile"]["eager_reason"] = prog.eager_reason
+        return head_params, losses
+
+    def _fused_round(self, messages: Sequence[ClientMessage], sig,
+                     info: Dict, *, generator: torch.Generator,
+                     device: torch.device) -> SessionResult:
+        """The fused server phase of a homogeneous cohort: the wire
+        tensors' full M·C slot grid through :meth:`_run_round` (count-0
+        slots are never drawn, so the head is the planner's compacted
+        slot stack's bit for bit)."""
+        stack, counts = FR.wire_stack(messages)
+        plan = P.plan_synthesis(counts, self.samples_per_class)
+        info.update(synthesis="fused", synthesis_plans=[plan])
+        if len(plan.slot_table) == 0:
+            return self._empty_cohort_result(info, messages,
+                                             generator=generator,
+                                             device=device)
+        if self.program_cache is not None:
+            stack, counts = FR.pad_cohort(stack, counts, sig,
+                                          sig.canonical())
+        args = [stack["pi"], stack["mu"], stack["cov"],
+                torch.from_numpy(counts), None]
+        head_params, losses = self._run_round(
+            sig, args, info, self.samples_per_class, generator=generator,
+            device=device)
+        info["head_losses"] = losses
+        return SessionResult(model=head_params, info=info,
+                             messages=list(messages))
+
+    # -- streaming ingestion (DESIGN.md §9) ---------------------------------
+
+    def _check_ingest_mode(self) -> None:
+        if self._synthesis_mode() != "fused":
+            raise ValueError(
+                "FedSession(ingest=...): streaming ingestion trains the "
+                "head straight from the bounded slot reservoir — only "
+                "synthesis='fused' never materializes the cohort; drop "
+                "ingest= for the 'streamed'/'pooled' paths")
+
+    def _train_from_state(self, state: IG.IngestState, info: Dict,
+                          messages, *, generator: torch.Generator,
+                          device: torch.device) -> SessionResult:
+        """Fused head training on the reservoir's fixed-shape padded
+        stack (``layout="slots"`` at M = capacity; ``samples_per_class``
+        was applied at fold time): the streaming counterpart of
+        :meth:`_fused_round`, its shape the capacity, not M."""
+        sig = FR.signature_of_state(state)
+        stack = state.padded_stack()
+        if self.program_cache is not None:
+            stack = FR.pad_slots(*stack, sig, sig.canonical())
+        pi, mu, cov, slot_labels, slot_counts = (torch.from_numpy(a)
+                                                 for a in stack)
+        head_params, losses = self._run_round(
+            sig, [pi, mu, cov, slot_counts, slot_labels], info, None,
+            generator=generator, device=device)
+        info["head_losses"] = losses
+        return SessionResult(model=head_params, info=info,
+                             messages=list(messages))
+
+    def _broker(self, clock=None) -> IG.IngestBroker:
+        return IG.IngestBroker(self.ingest, self.n_classes,
+                               samples_per_class=self.samples_per_class,
+                               clock=clock)
+
+    def _ingest_aggregate(self, messages: Sequence[ClientMessage],
+                          info: Dict, *, generator: torch.Generator,
+                          device: torch.device) -> SessionResult:
+        """The server phase through the streaming broker: the message list
+        stands in for the arrival stream (position is the client id), so
+        this path and :meth:`_run_streaming` share one state machine."""
+        self._check_ingest_mode()
+        broker = self._broker()
+        for i, m in enumerate(messages):
+            broker.submit(i, m)
+        return self._close_broker(broker, info, generator=generator,
+                                  device=device, messages=messages,
+                                  expected_clients=len(messages))
+
+    def _close_broker(self, broker: IG.IngestBroker, info: Dict, *,
+                      generator: torch.Generator, device: torch.device,
+                      messages=(), expected_clients: Optional[int] = None
+                      ) -> SessionResult:
+        state = broker.close()
+        info["synthesis"] = "fused"
+        acct = broker.accounting()
+        info["ingest"] = acct
+        info.setdefault("comm_bytes", acct["sent_bytes"])
+        _merge_fault_info(info, acct, expected=expected_clients)
+        if state is None or len(state.slot_table()) == 0:
+            return self._empty_cohort_result(
+                info, list(messages), generator=generator, device=device,
+                d=broker.header_d)
+        return self._train_from_state(state, info, messages,
+                                      generator=generator, device=device)
+
+    def aggregate_from_broker(self, broker: IG.IngestBroker, *,
+                              seed: int = 0, device=None,
+                              info: Optional[Dict] = None,
+                              expected_clients: Optional[int] = None
+                              ) -> SessionResult:
+        """Close an externally owned :class:`~repro_torch.fl.ingest
+        .IngestBroker` and train the head from its reservoir.  Entry
+        point: runs on ``cuda`` unless ``device="cpu"``.
+
+        The server draws from ``round_generator(seed, 0)``, as in
+        ``run(seed=seed)``, so a round fed the same admitted messages
+        gives the offline session's head bit for bit.  Partial rounds
+        degrade instead of failing: ``info["faults"]`` reports
+        ``degraded`` and the coverage against ``expected_clients``
+        (default: the distinct client ids the broker saw).
+        """
+        self._check_ingest_mode()
+        dev = resolve_device(device)
+        return self._close_broker(
+            broker, dict(info or {}), generator=round_generator(seed, 0, dev),
+            device=dev, expected_clients=expected_clients)
+
+    def _run_streaming(self, client_datasets, *, seed: int,
+                       device: torch.device) -> SessionResult:
+        """The Star round with M as a streaming axis: each client's message
+        is produced, submitted to the broker and dropped, so the message
+        list never exists and peak server memory is the broker's law.
+        The draw streams are ``Star.run``'s, so under capacity the head
+        is bit-identical to the non-streaming fused round's."""
+        self._check_ingest_mode()
+        self._check_streamable("FedSession(ingest=...)")
+        if not client_datasets:
+            raise ValueError("server_aggregate needs at least one message")
+        broker = self._broker()
+        comm = 0
+        stats = _fault_stats()
+        for i, (f, y) in enumerate(client_datasets):
+            msg = self._client_attempt(f, y, i, stats, seed=seed,
+                                       device=device)
+            if msg is None:
+                continue    # retries exhausted: lost at the source, the
+                #   broker's coverage reports the gap
+            comm += msg.comm_bytes
+            broker.submit(i, msg)
+            del msg
+        info: Dict = {"comm_bytes": comm}
+        if stats["retries"] or stats["failed"]:
+            info["faults"] = {"attempts": stats["attempts"],
+                              "retries": stats["retries"],
+                              "backoff_s": stats["backoff_s"],
+                              "failed_clients": stats["failed"]}
+        return self._close_broker(
+            broker, info, generator=round_generator(seed, 0, device),
+            device=device, expected_clients=len(client_datasets))
+
+    def _check_streamable(self, where: str) -> None:
+        if not isinstance(self.topology, Star):
+            raise NotImplementedError(
+                f"{where}: the broker receives one-shot Star messages; "
+                f"{self.topology.name!r} rounds are sequential relays with "
+                "no cohort to stream")
+        if self.summarizer.kind != "gmm" or (
+                self.client_summarizers is not None and any(
+                    s.kind != "gmm" for s in self.client_summarizers)):
+            raise NotImplementedError(
+                f"{where}: streaming ingestion folds GMM summaries; "
+                "head-summary baselines aggregate via the non-streaming "
+                "path (aggregate=...)")
+
+    # -- the chaos round (DESIGN.md §13) ------------------------------------
+
+    def _run_chaos(self, client_datasets, plan, *, seed: int,
+                   device: torch.device) -> SessionResult:
+        """The streaming Star round under a :class:`~repro_torch.fl.faults
+        .FaultPlan`: produce every client's message (transient failures
+        retried per the resilience contract), push the cohort through the
+        plan's delivery schedule on a fake clock, and close the round on
+        whatever the broker admitted.
+
+        The draw streams are :meth:`_run_streaming`'s and a retry replays
+        its client's stream, so the partial round's head is bit-identical
+        to an offline broker round fed exactly the admitted clients, each
+        from its own ``round_generator(seed, 1 + i)``.
+        """
+        from repro_torch.fl import faults as FJ
+        if self.ingest is None:
+            raise ValueError(
+                "FedSession.run(faults=...): chaos rounds stream through "
+                "the broker — set ingest=IngestConfig(...) so losses "
+                "degrade coverage instead of failing the round")
+        self._check_ingest_mode()
+        self._check_streamable("FedSession.run(faults=...)")
+        M = len(client_datasets)
+        if not M:
+            raise ValueError("server_aggregate needs at least one message")
+        stats = _fault_stats()
+        produced: List[Tuple[int, ClientMessage]] = []
+        for i, (f, y) in enumerate(client_datasets):
+            fate = plan.fate(i)
+            fn = None
+            if fate.transient_fails:
+                fn = FJ.flaky(self.client_update, fate.transient_fails)
+            msg = self._client_attempt(f, y, i, stats, seed=seed,
+                                       device=device, client_fn=fn)
+            if msg is not None:
+                produced.append((i, msg))
+        deliveries = FJ.schedule(plan, produced)
+        fake = {"t": 0.0}
+        broker = self._broker(clock=lambda: fake["t"])
+        for ev in deliveries:
+            fake["t"] = max(fake["t"], ev.t)   # arrivals are monotonic
+            broker.submit(ev.client_id, ev.message)
+        info: Dict = {"faults": {
+            "plan_seed": plan.seed,
+            "attempts": stats["attempts"],
+            "retries": stats["retries"],
+            "backoff_s": stats["backoff_s"],
+            "failed_clients": stats["failed"],
+            "produced": len(produced),
+            "delivered": len(deliveries),
+            # the survivors: an offline round fed exactly these clients
+            # reproduces this round's head bit for bit
+            "admitted_clients": list(broker.admitted_ids),
+        }}
+        return self._close_broker(
+            broker, info, generator=round_generator(seed, 0, device),
+            device=device, expected_clients=M)
 
     def _aggregate_heads(self, messages, info: Dict, *,
                          generator: torch.Generator) -> SessionResult:
@@ -893,15 +1276,22 @@ class FedSession:
     # -- entry point --------------------------------------------------------
 
     def run(self, client_datasets: Sequence[Tuple[Any, Any]], *,
-            seed: int = 0, device: Optional[str] = None) -> SessionResult:
+            seed: int = 0, device: Optional[str] = None,
+            faults=None) -> SessionResult:
         """One round over ``[(feats_i, labels_i)]`` along the session's
-        topology: every draw comes from one ``torch.Generator`` seeded with
-        ``seed`` on the session's device.  A Star round's
-        ``info["phase_s"]`` holds the host wall time of the client fits,
-        the encoding and the server phase."""
+        topology, its draws from generators seeded from ``seed`` on the
+        session's device (:func:`round_generator`; a Chain relays one).
+        With ``ingest`` set the Star round streams through the broker;
+        ``faults`` (an ``fl.faults.FaultPlan``) runs it under a fault
+        schedule.  A Star round's ``info["phase_s"]`` holds the host wall
+        time of the client fits, the encoding and the server phase."""
         self._check_supported()
         dev = resolve_device(device)
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(seed)
-        return self.topology.run(self, client_datasets, generator=generator,
+        if faults is not None:
+            return self._run_chaos(client_datasets, faults, seed=seed,
+                                   device=dev)
+        if self.ingest is not None:
+            return self._run_streaming(client_datasets, seed=seed,
+                                       device=dev)
+        return self.topology.run(self, client_datasets, seed=seed,
                                  device=dev)

@@ -128,12 +128,12 @@ def test_unported_paths_name_their_roadmap_item(name):
                       device="cpu")
 
 
-@pytest.mark.parametrize("name", sorted(REDUCED))
-def test_pipeline_from_backbone_features_meets_the_reference_bar(name):
+def backbone_rounds(name, seeds):
     """Features of the backbone → 3 clients' class-wise GMMs → bf16 wire →
-    fused head: FedPFT within 0.08 of the centralized head
-    (``tests/test_system.py``).  Tokens bin the values coarsely (16 ids),
-    so that a random embedding keeps the class signal."""
+    fused head, one round per seed: (FedPFT test accuracy per seed,
+    centralized accuracy, the last round's info).  Tokens bin the values
+    coarsely (16 ids), so that a random embedding keeps the class signal.
+    ``tests/sweep_backbone_bar.py`` runs it over many seeds."""
     _, tcfg = _cfgs(name, dtype="float32")
     g = torch.Generator()
     g.manual_seed(0)
@@ -152,11 +152,24 @@ def test_pipeline_from_backbone_features_meets_the_reference_bar(name):
         gmm=G.GMMConfig(n_components=2, cov_type="diag", n_iter=10),
         head=H.HeadConfig(n_steps=250, lr=3e-3))
     clients = [(f[p], y[p]) for p in parts]
-    head, info = FP.run_fedpft(clients, 4, cfg, device="cpu")
-    acc = float(H.accuracy(head, ft, yt))
+    accs = []
+    for seed in seeds:
+        head, info = FP.run_fedpft(clients, 4, cfg, seed=seed, device="cpu")
+        accs.append(float(H.accuracy(head, ft, yt)))
     head_c, _ = FP.centralized_baseline(clients, 4, cfg, device="cpu")
-    acc_c = float(H.accuracy(head_c, ft, yt))
-    assert acc > acc_c - 0.08, (acc, acc_c)
+    return accs, float(H.accuracy(head_c, ft, yt)), info
+
+
+@pytest.mark.parametrize("name", sorted(REDUCED))
+def test_pipeline_from_backbone_features_meets_the_reference_bar(name):
+    """FedPFT within 0.08 of the centralized head
+    (``tests/test_system.py``) on the backbone's features.  At 160 test
+    rows one round's accuracy spreads over 0.81–0.86 across seeds
+    (zamba2-7b's cut, ``tests/sweep_backbone_bar.py``), across the bar,
+    so the bar holds the mean of four rounds (seeds 0–3)."""
+    accs, acc_c, info = backbone_rounds(name, range(4))
+    acc = sum(accs) / len(accs)
+    assert acc > acc_c - 0.08, (accs, acc_c)
     assert acc_c > 0.5, acc_c            # the features carry the classes
     assert info["comm_bytes"] == sum(len(m.payload)
                                      for m in info["messages"])

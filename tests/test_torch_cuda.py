@@ -18,6 +18,7 @@ rows with a visible key; bf16 layouts that the kernels cannot copy in
 16-byte pieces raise ``ValueError`` without a launch.
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -374,3 +375,145 @@ def test_full_covariance_fit_on_card_matches_the_cpu_path(dev):
                                    rtol=2e-3, atol=2e-3)
     torch.testing.assert_close(on_card[2].cpu(), on_cpu[2], rtol=2e-3,
                                atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# the round-program cache: one captured CUDA graph per canonical signature
+# ---------------------------------------------------------------------------
+
+
+def _wire_cohort(seed, M, C, K, d, dev):
+    from repro_torch.fl import round as FR
+    rng = np.random.RandomState(seed)
+    pi = rng.dirichlet(np.ones(K), (M, C)).astype(np.float32)
+    mu = (rng.randn(M, C, K, d) + 3 * np.eye(C, d)[None, :, None]) \
+        .astype(np.float32)
+    cov = (rng.rand(M, C, K, d) + 0.1).astype(np.float32)
+    counts = rng.randint(50, 150, (M, C)).astype(np.int32)
+    sig = FR.CohortSignature(M=M, C=C, K=K, d=d, cov_type="diag")
+    wire = [torch.from_numpy(a).to(dev, torch.bfloat16)
+            for a in (pi, mu, cov)]
+    return sig, (*wire, torch.from_numpy(counts).to(dev))
+
+
+def _gen(dev, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g
+
+
+@pytest.mark.parametrize("d,n_steps", [(64, 60), (1280, 500)])
+def test_replay_is_bitwise_the_eager_round(dev, d, n_steps):
+    """Same seed, same inputs: the replayed head, losses and final
+    generator state are the eager ``round_program``'s, bit for bit; the
+    capture did not fall back."""
+    from repro_torch.core import head as H
+    from repro_torch.fl import round as FR
+    from repro_torch.launch import aot_cache as AC
+    cfg = H.HeadConfig(n_steps=n_steps)
+    sig, args = _wire_cohort(0, 4, 10, 10, d, dev)
+    g_eager = _gen(dev, 7)
+    head, losses = FR.round_program(*args, sig=sig, head_cfg=cfg,
+                                    generator=g_eager)
+    cache = AC.ProgramCache()
+    prog = cache.get(sig, cfg, device="cuda")
+    assert prog.aot and prog.eager_reason is None
+    g_replay = _gen(dev, 7)
+    rhead, rlosses = prog(*args, generator=g_replay)
+    for k in ("w", "b"):
+        assert torch.equal(rhead[k], head[k])
+    assert torch.equal(rlosses, losses)
+    assert torch.equal(g_replay.get_state(), g_eager.get_state())
+    st = cache.stats()
+    assert st["compiles"] == 1 and st["jit_fallbacks"] == 0
+
+
+def test_two_rounds_on_one_entry_leave_the_first_head(dev):
+    from repro_torch.core import head as H
+    from repro_torch.launch import aot_cache as AC
+    cfg = H.HeadConfig(n_steps=40)
+    sig, first_args = _wire_cohort(0, 4, 10, 8, 64, dev)
+    _, second_args = _wire_cohort(1, 4, 10, 8, 64, dev)
+    prog = AC.ProgramCache().get(sig, cfg, device="cuda")
+    first, _ = prog(*first_args, generator=_gen(dev, 1))
+    kept = {k: v.clone() for k, v in first.items()}
+    second, _ = prog(*second_args, generator=_gen(dev, 1))
+    assert not torch.equal(second["w"], first["w"])
+    for k in ("w", "b"):
+        assert torch.equal(first[k], kept[k])
+
+
+def test_eviction_frees_the_entry(dev):
+    import gc
+
+    from repro_torch.core import head as H
+    from repro_torch.launch import aot_cache as AC
+
+    def settled():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+    cfg = H.HeadConfig(n_steps=100)
+    big, _ = _wire_cohort(0, 8, 10, 10, 1280, dev)
+    small, _ = _wire_cohort(0, 1, 2, 1, 8, dev)
+    cache = AC.ProgramCache(max_entries=1)
+    cache.get(big, cfg, device="cuda")
+    cache.get(small, cfg, device="cuda")          # evicts big
+    a0, r0 = settled()
+    grown = cache.get(big, cfg, device="cuda").memory_bytes
+    _, r1 = settled()
+    cache.get(small, cfg, device="cuda")          # evicts big again
+    a2, r2 = settled()
+    assert grown > 10 * 2 ** 20 and r1 - r0 >= grown // 2
+    assert a2 <= a0 + 2 ** 20 and r2 <= r0 + 2 ** 21
+    assert cache.stats()["evictions"] == 3
+
+
+def test_full_covariance_entry_runs_eagerly_uncounted(dev):
+    """Full covariance is never captured, by design: its entry runs the
+    eager program and moves no fault counter."""
+    from repro_torch.core import head as H
+    from repro_torch.fl import round as FR
+    from repro_torch.launch import aot_cache as AC
+    cache = AC.ProgramCache()
+    sig = FR.CohortSignature(M=2, C=2, K=1, d=8, cov_type="full")
+    prog = cache.get(sig, H.HeadConfig(n_steps=5), device="cuda")
+    assert not prog.aot and "full covariance" in prog.eager_reason
+    assert cache.stats()["jit_fallbacks"] == 0
+    assert cache.stats()["compiles"] == 0 and prog.memory_bytes == 0
+
+
+def test_default_canonical_grid_at_d1280_stays_under_the_byte_bound(dev):
+    """The default grid (M 4/16/64 × K 1/2/4) at hubert-xlarge's width with
+    the default head: nine captures, none evicted or fallen back, their
+    memory under the default ``max_bytes``, and the device's reserved
+    memory grown by no more than the entries say they hold (plus the
+    library workspaces of the cache's side stream).  Prints each entry's
+    memory and the capture time (run with ``-s``)."""
+    import gc
+
+    from repro_torch.core import head as H
+    from repro_torch.launch import aot_cache as AC
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved()
+    cache = AC.ProgramCache()
+    st = cache.warmup(AC.canonical_grid(10, 1280), H.HeadConfig(),
+                      device="cuda")
+    print(json.dumps({"entry_memory_bytes": [e.memory_bytes
+                                             for e in cache.entries()],
+                      "total_bytes": cache.memory_bytes,
+                      "capture_s": st["total_compile_us"] / 1e6}))
+    assert st["compiles"] == 9 and st["entries"] == 9
+    assert st["evictions"] == 0 and st["jit_fallbacks"] == 0
+    assert all(e.memory_bytes > 0 for e in cache.entries())
+    assert cache.memory_bytes <= cache.max_bytes
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    grown = torch.cuda.memory_reserved() - r0
+    assert grown <= cache.memory_bytes + (256 << 20), (grown,
+                                                       cache.memory_bytes)
