@@ -85,6 +85,13 @@ def device_ms(torch, fn) -> float:
     return timer(torch, fn)
 
 
+def graph_ms(torch, fn) -> float:
+    """The card's time of one call with no host work: the call captured
+    in a CUDA graph and replayed (``compare.graph_ms``)."""
+    from repro_torch.kernels.compare import graph_ms as timer
+    return timer(torch, fn)
+
+
 def device_profile(torch, fn) -> dict:
     """Wall time of one call of ``fn`` under torch.profiler, the device
     time of the kernels it ran (top 8 by name) and the device's idle
@@ -125,6 +132,28 @@ def check_close(torch, name, got, exp, tol, **shape) -> float:
     if bad or not finite:
         raise AssertionError(f"{name} {shape}: {bad} elements outside "
                              f"tol {tol} (max abs err {max_err})")
+    return max_err
+
+
+def check_logits(torch, name, got, exp, tol, **shape) -> float:
+    """max |got − exp| over a logit vector; raises unless it is at most
+    tol · max |exp|.  Two bf16 paths through a deep stack differ by
+    rounding that scales with the hidden state, so the logits are held
+    to the logit scale, not each logit's own size."""
+    torch.cuda.synchronize()
+    got, exp = got.float(), exp.float()
+    err = (got - exp).abs()
+    scale = float(exp.abs().max())
+    max_err = float(err.max())
+    emit({"phase": "logit_check", "check": name, **shape,
+          "max_abs_err": max_err, "rms_err": float(err.square().mean()
+                                                   .sqrt()),
+          "max_abs": scale, "tol": tol, "bound": tol * scale,
+          "argmax_equal": bool((got.argmax(-1) == exp.argmax(-1)).all()),
+          "finite": bool(torch.isfinite(got).all())})
+    if not (max_err <= tol * scale and torch.isfinite(got).all()):
+        raise AssertionError(f"{name} {shape}: max abs err {max_err} over "
+                             f"{tol} × max |logit| {scale}")
     return max_err
 
 
@@ -269,6 +298,7 @@ def kernel_phase(torch, dev, card):
             raise AssertionError(f"fully masked rows gave {masked}, not 0")
 
     recurrent_checks(torch, dev, g, res)
+    cached_checks(torch, dev, g, res)
 
     for name, r in res.items():
         r["bound_ms"] = 1e3 * max(r["flops"] / r["peak"],
@@ -277,12 +307,94 @@ def kernel_phase(torch, dev, card):
                          >= r["bytes"] / HBM_BYTES_S else "bytes")
         if "design_flops" in r:
             r["design_bound_ms"] = 1e3 * r["design_flops"] / r["design_peak"]
-        emit({"phase": "kernel_time", "kernel": name, "card": card,
-              **{k: r[k] for k in ("ms", "device_ms", "plain_ms",
-                                   "library_ms", "library_device_ms",
-                                   "bound_ms", "bound_by", "design_bound_ms")
-                 if k in r}})
+        for row in r.get("by_shape", [r]):
+            emit({"phase": "kernel_time", "kernel": name, "card": card,
+                  **{k: row[k] for k in ("case", "shape", "ms", "device_ms",
+                                         "graph_ms", "plain_ms",
+                                         "library_ms", "library_device_ms",
+                                         "library_graph_ms", "bound_ms",
+                                         "bound_by", "design_bound_ms")
+                     if k in row}})
     return res
+
+
+def cached_work(q, kv_pos, q_pos, Hkv, window):
+    """The bytes cached attention must move (the valid K/V slots read once,
+    q read and o written once, the positions) and its operations (q·k and
+    p·v over the visible pairs), from this call's data."""
+    from repro_torch.kernels import ref
+    B, H, Sq, D = q.shape
+    e = q.element_size()
+    valid = int((kv_pos >= 0).sum())
+    pairs = int(ref.positions_mask(q_pos, kv_pos, window=window).sum())
+    return dict(flops=4.0 * H * pairs * D,
+                bytes=2.0 * e * Hkv * valid * D + 2.0 * e * B * H * Sq * D
+                + 4.0 * (kv_pos.numel() + q_pos.numel()),
+                peak=BF16_FLOPS if e == 2 else F32_FLOPS,
+                valid_slots=valid, visible_pairs=pairs)
+
+
+def cached_checks(torch, dev, g, res):
+    """attention_cached against its plain version in bf16 and f32 at the
+    serving paths' shapes (kernels.checks.CACHED_CASES): granite-3-2b's
+    decode over ragged rows 1 … 1024, a wrapped ring of W = 128, a ring
+    prefill chunk of 64 at pos0 > 0, zamba2-7b's decode (Hkv = 32, D =
+    112), D = 128 with rows that see no key.  Rows with a visible key are
+    compared; the others must be 0.  Times in bf16 beside SDPA with the
+    same boolean mask (a yardstick, never the path)."""
+    from repro_torch.kernels import attention_cached as CA
+    from repro_torch.kernels import checks, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = []
+    for tag, case in checks.CACHED_CASES.items():
+        B, H, Hkv, Sq, Sk, D, window, kind = case
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, q_pos, kv_pos = checks.cached_inputs(
+                g, dev, *case, dtype=dt)
+            out = CA.attention_cached(q, k, v, q_pos, kv_pos, window=window)
+            exp = ref.attention_positions_ref(q, k, v, q_pos, kv_pos,
+                                              window=window)
+            mask = ref.positions_mask(q_pos, kv_pos, window=window)
+            sel = mask.any(-1)[:, None, :].expand(out.shape[:3])
+            tol = ATTN_TOL_BF16 if dt == torch.bfloat16 else ATTN_TOL_F32
+            err = check_close(torch, "attention_cached", out[sel], exp[sel],
+                              tol, case=tag, B=B, H=H, Hkv=Hkv, Sq=Sq,
+                              Sk=int(kv_pos.shape[1]), D=D, window=window,
+                              dtype=str(dt))
+            masked = float(out[~sel].abs().max()) if (~sel).any() else 0.0
+            if masked != 0.0:
+                raise AssertionError(f"attention_cached {tag}: rows with no "
+                                     f"visible key gave {masked}, not 0")
+            if dt != torch.bfloat16:
+                continue
+            G = H // Hkv
+            kx, vx = (t.repeat_interleave(G, dim=1) for t in (k, v))
+            am = mask[:, None]
+
+            def call():
+                return CA.attention_cached(q, k, v, q_pos, kv_pos,
+                                           window=window)
+
+            def lib():
+                return sdpa(q, kx, vx, attn_mask=am)
+            r = dict(case=tag, shape=[B, H, Hkv, Sq, int(kv_pos.shape[1]), D],
+                     window=window, max_abs_err=err,
+                     ms=time_ms(torch, call), device_ms=device_ms(torch, call),
+                     graph_ms=graph_ms(torch, call),
+                     library_graph_ms=graph_ms(torch, lib),
+                     plain_ms=time_ms(torch, lambda: ref
+                                      .attention_positions_ref(
+                                          q, k, v, q_pos, kv_pos,
+                                          window=window)),
+                     library_ms=time_ms(torch, lib),
+                     library_device_ms=device_ms(torch, lib),
+                     **cached_work(q, kv_pos, q_pos, Hkv, window))
+            r["bound_ms"] = 1e3 * max(r["flops"] / r["peak"],
+                                      r["bytes"] / HBM_BYTES_S)
+            r["bound_by"] = ("operations" if r["flops"] / r["peak"]
+                             >= r["bytes"] / HBM_BYTES_S else "bytes")
+            shapes.append(r)
+    res["attention_cached"] = dict(shapes[0], by_shape=shapes)
 
 
 # bf16 ssd at the path's head sizes: tag, (Bt, H, T, N, P), chunk, s0
@@ -449,11 +561,13 @@ PATHS = {
 }
 
 
-def main_path(torch, dev, card, name, keep=None):
+def main_path(torch, dev, card, name, keep=None, extra=None):
     """One FedPFT round with ``name``'s features, counted; then where its
     time goes, and its features against the plain CPU path.  ``keep``, a
     dict, receives the features, labels, raw inputs and the round's
-    ``comm_bytes`` for the paths that reuse them."""
+    ``comm_bytes`` for the paths that reuse them.  ``extra``, a dict,
+    receives the launch counts of the backbone's serving run (``SERVE``),
+    made while its weights are alive."""
     import dataclasses
     import gc
 
@@ -614,10 +728,343 @@ def main_path(torch, dev, card, name, keep=None):
                               for i in range(0, len(fr), batch)])
         keep.update(feats=feats, feats_t=feats_t, y=y_dev, yt=yt_dev, x=x,
                     xt=xt, comm_fused=comm, features_of=features_of)
+    if extra is not None and name in SERVE:
+        extra.update(serve_phase(torch, dev, card, cfg, params, name,
+                                 **SERVE[name]))
     del params, p2, feats, feats_t, clients, res, sess
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+# the serving runs of each decode-capable backbone: the server's pool,
+# the requests (prompt lengths drawn from [lo, hi] with seed 0) and the
+# tokens each generates; granite-3-2b also runs a ring of 128 slots
+SERVE = {"granite-3-2b": dict(n_slots=8, max_seq=1024, n_req=24,
+                              lengths=(16, 512), max_new=32),
+         "granite-3-2b/ring": dict(n_slots=4, max_seq=1024, n_req=4,
+                                   lengths=(200, 400), max_new=32,
+                                   window=128),
+         "rwkv6-3b": dict(n_slots=4, max_seq=640, n_req=8,
+                          lengths=(64, 512), max_new=16),
+         "zamba2-7b": dict(n_slots=4, max_seq=640, n_req=8,
+                           lengths=(64, 512), max_new=16)}
+N_SEQUENTIAL = 4          # streams held against their own greedy_generate
+BF16_LOGIT_ULP = 1.0 / 64  # one bf16 step at logits of magnitude 2 … 4
+
+
+def host_split(torch, fn) -> dict:
+    """One call of ``fn`` under torch.profiler: the device's idle share
+    (``device_profile``) and where the host's time went, the top 8 host
+    operations by their own time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    host = {}
+    for e in prof.key_averages():
+        ms = float(getattr(e, "self_cpu_time_total", 0.0)) / 1e3
+        if ms > 0:
+            host[e.key[:80]] = host.get(e.key[:80], 0.0) + ms
+    top = sorted(host.items(), key=lambda kv: -kv[1])[:8]
+    return {**device_profile(torch, fn), "host_self_ms_total":
+            sum(host.values()), "top_host_ms": top}
+
+
+def serve_phase(torch, dev, card, cfg, params, tag, n_slots, max_seq, n_req,
+                lengths, max_new, window=0):
+    """One serving run of ``BatchedServer`` at full width and depth:
+    decode ≡ full forward on the first prompt, then the counted run with
+    continuous admission (prefill ms per bucket, decode-step ms, tokens/s),
+    then the first ``N_SEQUENTIAL`` streams against their own
+    ``greedy_generate`` up to the first near-tie, then one decode step
+    under the profiler.  Returns ``{tag + "/serve": launch counts}``."""
+    import numpy as np
+
+    from repro_torch import serve as SV
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serve.server import BatchedServer, Request, ServerConfig
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(lengths[0], lengths[1] + 1, size=n_req)
+    prompts = [torch.from_numpy(rng.integers(1, cfg.vocab_size, size=int(L)))
+               .to(dev) for L in lens]
+
+    # ---- decode ≡ full forward (tests/test_archs.py:90 and :118)
+    p0, L0 = prompts[0], int(lens[0])
+    nxt = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(1, 1))) \
+        .to(dev)
+    full, _, _ = M.forward(cfg, params, {"tokens": torch.cat(
+        [p0[None], nxt], 1)}, window=window)
+    _, cache = SV.make_prefill_step(cfg, max_seq, window)(
+        params, {"tokens": p0[None]})
+    dec, _ = SV.make_decode_step(cfg, window)(params, cache, nxt, L0)
+    err = check_logits(torch, f"decode of {tag} ≡ full forward", dec,
+                       full[:, -1], ATTN_TOL_BF16, prompt=L0, window=window)
+    del cache, full
+
+    # ---- the served run, counted
+    srv = BatchedServer(cfg, params, ServerConfig(
+        n_slots=n_slots, max_seq=max_seq, window=window))
+    reqs = [Request(rid=i, prompt=p, max_new=max_new)
+            for i, p in enumerate(prompts)]
+    pending = list(reqs)
+    prefill_ms, step_ms = {}, []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t_run = time.perf_counter()
+    while pending or any(r is not None for r in srv.active):
+        while pending and srv.free_slots():
+            L = int(pending[0].prompt.shape[0])
+            key = (SV.pow2_bucket(L, srv.scfg.min_bucket, max_seq)
+                   if srv.bucketed else L)
+            t0 = time.perf_counter()
+            srv.submit(pending.pop(0))     # ends on the first token's sync
+            prefill_ms.setdefault(key, []).append(
+                1e3 * (time.perf_counter() - t0))
+        if any(r is not None for r in srv.active):
+            t0 = time.perf_counter()
+            srv.step()                     # ends on the tokens' sync
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    counts = ops.launch_counts()
+    out = {r.rid: r.out for r in reqs}
+    n_tok = sum(len(v) for v in out.values())
+
+    # ---- batched ≡ sequential: a stream may leave its greedy_generate
+    # only at a near-tie, a step whose sequential top-2 gap is under twice
+    # the decode ≡ forward error (two bf16 paths that far apart can flip
+    # it); every step before the first near-tie must match
+    tie = max(2.0 * err, BF16_LOGIT_ULP)
+    seq, matched, total = [], 0, 0
+    for i in range(N_SEQUENTIAL):
+        toks, gaps = SV.greedy_generate(cfg, params, prompts[i][None],
+                                        max_new, max_seq, window,
+                                        with_gaps=True)
+        toks, gaps = toks[0].tolist(), gaps[0].tolist()
+        stop = next((j for j, g in enumerate(gaps) if g < tie), len(gaps))
+        first = next((j for j, (a, b) in enumerate(zip(toks, out[i]))
+                      if a != b), None)
+        same = sum(a == b for a, b in zip(toks, out[i]))
+        matched, total = matched + same, total + len(toks)
+        seq.append({"rid": i, "checked_steps": stop, "matched": same,
+                    "steps": len(toks), "first_mismatch": first,
+                    "gap_at_first_mismatch": (None if first is None
+                                              else gaps[first])})
+        if first is not None and gaps[first] >= tie:
+            raise AssertionError(
+                f"{tag}: stream {i} leaves its greedy_generate at step "
+                f"{first}, where the top-2 gap {gaps[first]} is not a "
+                f"near-tie (< {tie}); {stop} steps before the first one")
+    prof = host_split(torch, lambda: srv._decode(
+        params, srv.cache, srv.last_tok, srv.positions))
+    plain = sum(v for k, v in counts.items() if k.startswith("plain_on"))
+    emit({"phase": "serve", "model": cfg.name, "run": tag, "card": card,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "n_slots": n_slots, "max_seq": max_seq, "window": window,
+          "n_requests": n_req, "prompt_lengths": [int(lens.min()),
+                                                  int(lens.max())],
+          "max_new": max_new, "bucketed": srv.bucketed,
+          "prefill_ms_by_bucket": {str(k): float(np.median(v))
+                                   for k, v in sorted(prefill_ms.items())},
+          "prefill_shapes": srv.prefill_compiles(),
+          "decode_steps": len(step_ms),
+          "decode_step_ms_median": float(np.median(step_ms)),
+          "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+          "decode_vs_forward_max_abs_err": err, "tie_gap": tie,
+          "sequential": seq, "matched_share": matched / total,
+          "launches": {k: v for k, v in counts.items()
+                       if v and not k.startswith("plain_on")},
+          "plain_on_cuda": plain, "decode_step_profile": prof})
+    want = {"flash_attention": cfg.family != "ssm" and window == 0,
+            "attention_cached": cfg.family != "ssm",
+            "wkv6": cfg.family == "ssm", "ssd": cfg.family == "hybrid"}
+    for k, needed in want.items():
+        if needed and counts[k] < 1:
+            raise AssertionError(f"{tag}: the serving run never launched "
+                                 f"{k}")
+    if plain:
+        raise AssertionError(f"{tag}: plain versions ran on CUDA tensors")
+    if any(len(v) != max_new for v in out.values()):
+        raise AssertionError(f"{tag}: a stream stopped short of {max_new}")
+    del srv
+    return {f"{tag}/serve": counts}
+
+
+def serving_paths(torch, dev, card):
+    """granite-3-2b at full width and depth, random bf16 weights from seed
+    0: the dense server, the ring server (window 128), and FedPFTService.
+    Returns each path's launch counts."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config("granite-3-2b")
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, g)
+    torch.cuda.synchronize()
+    n_params = n_params_of(params)
+    emit({"phase": "init", "model": cfg.name, "family": cfg.family,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "n_params": n_params, "param_bytes": 2 * n_params,
+          "s": time.perf_counter() - t0, "card": card})
+    out = {}
+    for tag in ("granite-3-2b", "granite-3-2b/ring"):
+        out.update(serve_phase(torch, dev, card, cfg, params, tag,
+                               **SERVE[tag]))
+    out.update(service_phase(torch, dev, card, cfg, params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+SERVICE_SEED = 7
+
+
+def service_phase(torch, dev, card, cfg, params):
+    """FedPFTService on granite-3-2b: 4 clients' extraction traffic (the
+    smoke's 10-class inputs binned to tokens, lengths 128 … 512), the
+    round closed through a warmed program cache, then inference of the
+    test inputs interleaved with their round-2 extraction.  The served
+    head must be bitwise the offline ``FedSession.run`` head; each label
+    the head's argmax on its request's own features; the accuracy within
+    0.08 of the centralized head's (tests/test_system.py:70)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import data as D
+    from repro_torch.core import fedpft as FP
+    from repro_torch.core import gmm as G
+    from repro_torch.core import head as H
+    from repro_torch.fl import api as A
+    from repro_torch.fl import ingest as IG
+    from repro_torch.kernels import ops
+    from repro_torch.launch.aot_cache import ProgramCache
+    from repro_torch.serve.service import FedPFTService, ServiceConfig
+
+    def check(cond, what):
+        if not cond:
+            raise AssertionError(f"service: {what}")
+
+    dcfg = D.DatasetConfig(n_classes=10, n_per_class=100, input_dim=512,
+                           class_sep=3.0)
+    x, y = D.make_dataset(dcfg)
+    xt, yt = D.make_dataset(dataclasses.replace(dcfg, n_per_class=25),
+                            split=1)
+    tok, tok_t = tokens_of(np, x), tokens_of(np, xt)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(128, 513, size=len(tok))
+    lens_t = rng.integers(128, 513, size=len(tok_t))
+
+    def session():
+        return A.FedSession(
+            n_classes=10, summarizer=A.GMMSummarizer(G.GMMConfig()),
+            ingest=IG.IngestConfig(capacity=64, chunk_size=8),
+            program_cache=ProgramCache())
+    svc = FedPFTService(cfg, params, session(),
+                        ServiceConfig(n_slots=16, max_seq=512))
+    parts = D.iid_shards(len(y), 4)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [[svc.submit_extract(tok[j, :lens[j]]) for j in p]
+            for p in parts]
+    svc.drain()
+    t_extract = time.perf_counter() - t0
+    datasets = [(torch.from_numpy(np.stack([r.feats for r in rr])).to(dev),
+                 torch.from_numpy(y[p]).to(dev))
+                for rr, p in zip(reqs, parts)]
+    warm = svc.warmup(d=cfg.d_model)
+    verdicts = []
+    for i, (f, yy) in enumerate(datasets):
+        msg = svc.session.client_update(
+            f, yy, i, generator=A.round_generator(SERVICE_SEED, 1 + i, dev),
+            device=dev)
+        verdicts.append(svc.submit_update(i, msg))
+    cache = svc.session.program_cache
+    misses0 = cache.misses
+    t0 = time.perf_counter()
+    res = svc.close_round(seed=SERVICE_SEED)
+    torch.cuda.synchronize()
+    t_close = time.perf_counter() - t0
+    close_misses = cache.misses - misses0
+    # round 2: inference of the test inputs interleaved with their
+    # extraction
+    inf, ext = [], []
+    for j in range(len(tok_t)):
+        inf.append(svc.submit_infer(tok_t[j, :lens_t[j]]))
+        ext.append(svc.submit_extract(tok_t[j, :lens_t[j]]))
+    svc.drain()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    stats = svc.stats()
+
+    off = session().run(datasets, seed=SERVICE_SEED)
+    bitwise = all(torch.equal(res.model[k], off.model[k])
+                  for k in res.model)
+    labels = np.asarray([r.label for r in inf])
+    acc = float((labels == yt).mean())
+    feats_t = torch.from_numpy(np.stack([r.feats for r in ext])).to(dev)
+    yt_dev = torch.from_numpy(yt).to(dev)
+    head_c, _ = FP.centralized_baseline(datasets, 10, FP.FedPFTConfig(),
+                                        seed=0)
+    acc_c = float(H.accuracy(head_c, feats_t, yt_dev))
+    # each label against the head on its request's own features, the
+    # request alone (a label may differ only where the head's top-2 gap
+    # is within rounding of the two feature paths)
+    own = {"checked": 0, "equal": 0, "near_ties": 0}
+    t0 = time.perf_counter()
+    for r in inf:
+        L = r.tokens.shape[0]
+        f = svc._feats(params, torch.from_numpy(r.tokens)[None].to(dev),
+                       torch.tensor([L], device=dev))
+        lg = H.head_logits(svc.head, f)[0]
+        top2 = torch.topk(lg, 2).values
+        own["checked"] += 1
+        if int(torch.argmax(lg)) == r.label:
+            own["equal"] += 1
+        elif float(top2[0] - top2[1]) < 1e-2 * (1 + float(top2[0].abs())):
+            own["near_ties"] += 1
+        else:
+            raise AssertionError(f"service: request {r.rid} label "
+                                 f"{r.label} is not the head's argmax on "
+                                 "its own features")
+    own["s"] = time.perf_counter() - t0
+    plain = sum(v for k, v in counts.items() if k.startswith("plain_on"))
+    emit({"phase": "service", "model": cfg.name, "card": card,
+          "n_slots": 16, "max_seq": 512, "n_clients": 4,
+          "extract_requests": len(tok) + len(tok_t),
+          "infer_requests": len(tok_t), "extract_round1_s": t_extract,
+          "close_round_s": t_close, "close_round_cache_misses": close_misses,
+          "warmup": warm, "verdicts": verdicts,
+          "bitwise_offline_head": bitwise, "acc": acc,
+          "acc_centralized": acc_c, "own_feature_labels": own,
+          "stats": {k: v for k, v in stats.items() if k != "ingest"},
+          "launches": {k: v for k, v in counts.items()
+                       if v and not k.startswith("plain_on")},
+          "plain_on_cuda": plain})
+    check(all(v == "admitted" for v in verdicts), f"verdicts {verdicts}")
+    check(close_misses == 0, f"close_round missed the cache {close_misses} "
+          "times")
+    check(bitwise, "the served head is not bitwise the offline head")
+    check(acc >= acc_c - 0.08, f"acc {acc} < centralized {acc_c} − 0.08")
+    check(acc_c > 0.5, f"centralized acc {acc_c} ≤ 0.5: the features lost "
+          "the class signal")
+    check(counts["flash_attention"] > 0 and counts["estep_fused"] > 0,
+          f"kernels not launched: {counts}")
+    check(plain == 0, "plain versions ran on CUDA tensors")
+    check(stats["feature_compiles"] <= 3, f"{stats['feature_compiles']} "
+          "feature shapes for buckets 128, 256, 512")
+    return {"granite-3-2b/service": counts}
 
 
 GIB = 2 ** 30
@@ -1174,7 +1621,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reports = _build.build(["gmm_estep.cu", "flash_attention.cu", "wkv6.cu",
-                            "ssd.cu"])
+                            "ssd.cu", "attention_cached.cu"])
     emit({"phase": "build", "s": time.perf_counter() - t0,
           "ptxas": {s: [ln.strip() for ln in r.splitlines()
                         if "registers" in ln or "spill" in ln]
@@ -1184,11 +1631,12 @@ def main() -> int:
     counts = {}
     for name in PATHS:
         keep = {} if name == "hubert-xlarge" else None
-        counts[name] = main_path(torch, dev, card, name, keep)
+        counts[name] = main_path(torch, dev, card, name, keep, counts)
         if keep is not None:
             counts.update(slice_paths(torch, dev, card, keep))
             counts.update(slice6_paths(torch, dev, card, keep))
             keep.clear()
+    counts.update(serving_paths(torch, dev, card))
 
     sources = {"estep_fused": ("src/repro_torch/kernels/csrc/gmm_estep.cu",
                                "src/repro/kernels/gmm_estep.py:177"),
@@ -1200,7 +1648,11 @@ def main() -> int:
                "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu",
                         "src/repro/kernels/wkv6.py:96"),
                "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
-                       "src/repro/kernels/ssd.py:91")}
+                       "src/repro/kernels/ssd.py:91"),
+               # no TPU kernel: the reference's XLA _sdpa_chunked
+               "attention_cached": (
+                   "src/repro_torch/kernels/csrc/attention_cached.cu",
+                   None)}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms")
     kernels = []
@@ -1210,6 +1662,12 @@ def main() -> int:
                  "replaces": rep, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
                  **{k: kres[name][k] for k in keys}}
+        if name == "attention_cached":
+            entry["by_shape"] = [
+                {kk: r[kk] for kk in ("case", "shape", "window", *keys,
+                                      "library_device_ms", "graph_ms",
+                                      "library_graph_ms")}
+                for r in kres[name]["by_shape"]]
         if name == "flash_attention":          # zamba2-7b's causal D = 112
             entry["by_shape"] = [
                 {"shape": kres[k]["shape"], "causal": kres[k]["causal"],

@@ -9,7 +9,9 @@ or summarizer, ``models.model.features``, ``core.gmm.fit_classwise_gmms``,
 ``core.head.train_head_from_gmms``, ``core.fedpft.run_fedpft`` and
 ``client_update``, ``core.dp.run_dp_fedpft``,
 ``core.decentralized.run_chain`` and ``chain_step``,
-``fl.baselines.fedavg``) run on ``cuda`` unless the caller passes
+``fl.baselines.fedavg``, ``models.model.init_cache``,
+``serve.greedy_generate``, ``serve.server.BatchedServer`` and
+``serve.service.FedPFTService``) run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU they raise instead of carrying on on the
 CPU (:func:`resolve_device`).
 """

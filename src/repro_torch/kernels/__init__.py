@@ -2,6 +2,8 @@
 
   gmm_estep        diag/spher GMM E-step (+ row logsumexp), f32
   flash_attention  online-softmax attention: causal, window, prefix, GQA
+  attention_cached attention over a KV cache with per-row positions
+                   (decode and ring-buffer chunks; no TPU counterpart)
   wkv6             RWKV6 recurrence with per-channel decay (rwkv6-3b)
   ssd              Mamba2 SSD recurrence with scalar decay (zamba2-7b)
 

@@ -1,5 +1,6 @@
-"""Check cases of the kernels: the E-step's shapes, and those of the
-recurrent kernels ``wkv6`` and ``ssd``.
+"""Check cases of the kernels: the E-step's shapes, those of the
+recurrent kernels ``wkv6`` and ``ssd``, and the cache layouts of cached
+attention.
 
 Shared by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``, which hold the
 CUDA kernels against their plain versions on a card, and (the shapes) by
@@ -51,6 +52,49 @@ SSD_SHAPES = [(1, 2, 64, 8, 16, 32), (2, 3, 128, 16, 32, 64),
 # rounds past wkv6's 1e-4 on outputs near zero)
 WKV6_LONG = (2, 2, 200, 64, 64)
 SSD_LONG = (2, 2, 200, 64, 64, 256)
+
+
+# cached attention, tag: (B, H, Hkv, Sq, Sk, D, window, kind).  "ragged":
+# a dense cache at granite-3-2b's decode, each row at its own length 1 …
+# Sk; "ring": a ring of W = Sk slots with every row past W (wrapped);
+# "chunk": a ring prefill chunk of Sq queries at pos0 > 0 over
+# [old ring ∪ chunk]; then zamba2-7b's shared block at decode (Hkv = 32,
+# D = 112) and yi-34b's D = 128
+CACHED_CASES = {"granite_decode": (8, 32, 8, 1, 1024, 64, 0, "ragged"),
+                "ring_wrap": (8, 32, 8, 1, 128, 64, 128, "ring"),
+                "ring_chunk": (2, 32, 8, 64, 128, 64, 128, "chunk"),
+                "zamba2_decode": (4, 32, 32, 1, 640, 112, 0, "ragged"),
+                "d128_gqa": (2, 8, 2, 5, 300, 128, 0, "ragged")}
+
+
+def cached_inputs(g: torch.Generator, dev, B, H, Hkv, Sq, Sk, D, window,
+                  kind, dtype=torch.float32):
+    """(q (B, H, Sq, D), k, v (B, Hkv, S_keys, D) as (B, S, Hkv, D)
+    transposed like a cache, q_pos (B, Sq), kv_pos (B, S_keys)) for a
+    case of ``CACHED_CASES``; a "chunk" has S_keys = Sk + Sq."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+    rows = torch.arange(B, device=dev)[:, None]
+    j = torch.arange(Sk, device=dev)[None]
+    if kind == "ragged":
+        length = torch.linspace(1, Sk, B, device=dev).round().long()[:, None]
+        q_pos = length - 1 + torch.arange(Sq, device=dev)[None] - (Sq - 1)
+        kv_pos = torch.where(j < length, j, -1)
+    elif kind == "ring":
+        latest = Sk + 7 * rows + 3 * Sk * (rows % 2)
+        q_pos = latest
+        kv_pos = latest - torch.remainder(latest - j, Sk)
+    elif kind == "chunk":
+        p0 = Sk // 2 + 9 * rows          # some old slots still empty
+        q_pos = p0 + torch.arange(Sq, device=dev)[None]
+        old = p0 - 1 - torch.remainder(p0 - 1 - j, Sk)
+        kv_pos = torch.cat([torch.where(old >= 0, old, -1), q_pos], 1)
+    else:
+        raise ValueError(kind)
+    n_keys = kv_pos.shape[1]
+    q = rnd(B, Sq, H, D).transpose(1, 2)
+    k, v = (rnd(B, n_keys, Hkv, D).transpose(1, 2) for _ in range(2))
+    return q, k, v, q_pos.int(), kv_pos.int()
 
 
 def estep_inputs(g: torch.Generator, dev, Bx, B, N, K, d, spher=False):

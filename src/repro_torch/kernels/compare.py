@@ -3,7 +3,7 @@
     python3 src/repro_torch/kernels/compare.py --tree NAME=DIR [--tree ...]
         [--flash NAME=BASE:FILE.cu[:ABLATION] ...]
         [--ablate NAME=BASE:ABLATION[:ABLATION] ...] [--rounds 2]
-        [--only flash,ssd,wkv6,estep] [--out build/compare.jsonl]
+        [--only flash,ssd,wkv6,estep,cached] [--out build/compare.jsonl]
     python3 src/repro_torch/kernels/compare.py --sweep-estep
         [--out build/estep_plans.jsonl]
 
@@ -22,8 +22,10 @@ every version in turn, then again in the reverse order (A B … B A), each
 in a child process that imports that version's ``repro_torch``, builds
 its kernels into the version's own ``build/kernels/``, holds flash at the
 encoder's and zamba2-7b's shapes, ``ssd`` at the zamba2-7b path's shape,
-``wkv6`` at the rwkv6-3b path's shape and the two E-steps against their
-plain versions, and times each kernel (and SDPA beside flash) two ways:
+``wkv6`` at the rwkv6-3b path's shape, the two E-steps and
+``attention_cached`` at the serving paths' shapes
+(``checks.CACHED_CASES``) against their plain versions, and times each
+kernel (and SDPA beside flash and ``attention_cached``) two ways:
 
 - ``single_ms``: the median over 25 calls of an event pair around one
   call, the card idle between calls; this counts the host's work to
@@ -33,7 +35,8 @@ plain versions, and times each kernel (and SDPA beside flash) two ways:
   overlapped with it.
 
 ``--only`` builds and times the named groups alone (``flash``, ``ssd``,
-``wkv6``, ``estep``: both E-steps).  Prints one JSON object per
+``wkv6``, ``estep``: both E-steps, ``cached``); a tree from before
+``attention_cached`` needs ``--only`` without ``cached``.  Prints one JSON object per
 version and round, then a summary; writes both to ``--out``.
 ``--sweep-estep`` times every launch plan of the E-step kernel at the main
 path's shapes (one CUDA graph replayed: the card's time alone) and says
@@ -108,10 +111,9 @@ def _times(torch, fn) -> dict:
             "device_ms": device_ms(torch, fn)}
 
 
-KERNELS = (*FLASH, "ssd", "wkv6", "estep_fused", "estep")
 # --only: each group's source and the kernels it times
 GROUPS = {"flash": "flash_attention.cu", "ssd": "ssd.cu", "wkv6": "wkv6.cu",
-          "estep": "gmm_estep.cu"}
+          "estep": "gmm_estep.cu", "cached": "attention_cached.cu"}
 
 
 def child(label: str, only: str = "") -> dict:
@@ -183,6 +185,26 @@ def child(label: str, only: str = "") -> dict:
             (GE.estep(x0, mu0, var0, pi0) - ref.estep_ref(x0, mu0, var0, pi0))
             .abs().max()), **_times(torch, lambda: GE.estep(
                 x0, mu0, var0, pi0))}
+    if "cached" in groups:
+        from repro_torch.kernels import attention_cached as CA
+        g.manual_seed(0)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        for tag, case in checks.CACHED_CASES.items():
+            B, H, Hkv, Sq, Sk, D, window, kind = case
+            q, k, v, qp, kp = checks.cached_inputs(g, dev, *case,
+                                                   dtype=torch.bfloat16)
+            mask = ref.positions_mask(qp, kp, window=window)
+            sel = mask.any(-1)[:, None, :].expand(q.shape[:3])
+            got = CA.attention_cached(q, k, v, qp, kp, window=window)
+            exp = ref.attention_positions_ref(q, k, v, qp, kp, window=window)
+            kx, vx = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+            res[f"attention_cached/{tag}"] = {
+                "max_abs_err": float((got.float() - exp.float())[sel].abs()
+                                     .max()),
+                **_times(torch, lambda: CA.attention_cached(
+                    q, k, v, qp, kp, window=window)),
+                "library": _times(torch, lambda: sdpa(
+                    q, kx, vx, attn_mask=mask[:, None]))}
     return res
 
 
@@ -413,8 +435,9 @@ def main() -> int:
                            "library_single_ms": [
                            r[k]["library"]["single_ms"] for r in rows
                            if r["version"] == name]}
-                          if k in FLASH else {})}
-                   for k in KERNELS if k in rows[0]}
+                          if "library" in rows[0][k] else {})}
+                   for k, v in rows[0].items()
+                   if isinstance(v, dict) and "device_ms" in v}
             for name in order}}
         print(json.dumps(summary), flush=True)
         f.write(json.dumps(summary) + "\n")

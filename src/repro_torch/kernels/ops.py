@@ -8,16 +8,18 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels import attention_cached as _ac
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gmm_estep as _ge
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import wkv6 as _wkv6
 
-__all__ = ["gmm_estep", "gmm_estep_fused", "attention", "wkv6", "ssd",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["gmm_estep", "gmm_estep_fused", "attention", "attention_cached",
+           "wkv6", "ssd", "launch_counts", "reset_launch_counts"]
 
-_KERNEL_COUNTS = (_ge.LAUNCHES, _fa.LAUNCHES, _wkv6.LAUNCHES, _ssd.LAUNCHES)
+_KERNEL_COUNTS = (_ge.LAUNCHES, _fa.LAUNCHES, _ac.LAUNCHES, _wkv6.LAUNCHES,
+                  _ssd.LAUNCHES)
 
 
 def gmm_estep(x, mu, var, pi):
@@ -45,6 +47,17 @@ def attention(q, k, v, *, causal=True, window=0, prefix=0):
                                    prefix=prefix)
     return ref.attention_ref(q, k, v, causal=causal, window=window,
                              prefix=prefix)
+
+
+def attention_cached(q, k, v, q_pos, kv_pos, *, causal=True, window=0):
+    """(B, H, Sq, D) queries at positions q_pos (B, Sq) over a KV cache
+    (B, Hkv, Sk, D) whose slots hold positions kv_pos (B, Sk), < 0 empty
+    → (B, H, Sq, D)."""
+    if q.is_cuda:
+        return _ac.attention_cached(q, k, v, q_pos, kv_pos, causal=causal,
+                                    window=window)
+    return ref.attention_positions_ref(q, k, v, q_pos, kv_pos,
+                                       causal=causal, window=window)
 
 
 def wkv6(r, k, v, lw, u, s0, chunk: int = 16):

@@ -15,7 +15,7 @@ import torch
 _LOG2PI = math.log(2.0 * math.pi)
 
 CUDA_CALLS: Dict[str, int] = {"estep": 0, "estep_fused": 0, "attention": 0,
-                               "wkv6": 0, "ssd": 0}
+                               "attention_cached": 0, "wkv6": 0, "ssd": 0}
 
 
 def _note(name: str, t: torch.Tensor) -> None:
@@ -124,6 +124,48 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = attention_mask(Sq, Sk, causal=causal, window=window,
                           prefix=prefix, device=q.device)
     s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return o.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def positions_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                   causal: bool = True, window: int = 0) -> torch.Tensor:
+    """(B, Sq, Sk) bool: which key slots each query of
+    ``attention_positions_ref`` sees.  ``kv_pos < 0`` marks an empty
+    slot; ``rel = q_pos − kv_pos`` must be ≥ 0 if causal and < window
+    if window > 0."""
+    rel = q_pos[:, :, None].long() - kv_pos[:, None, :].long()
+    mask = (kv_pos >= 0)[:, None, :].expand(rel.shape).clone()
+    if causal:
+        mask &= rel >= 0
+    if window > 0:
+        mask &= rel < window
+    return mask
+
+
+def attention_positions_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, q_pos: torch.Tensor,
+                            kv_pos: torch.Tensor, *, causal: bool = True,
+                            window: int = 0) -> torch.Tensor:
+    """Attention over a KV cache with per-row positions (the reference's
+    ``layers._sdpa_chunked`` with ``kv_positions`` / ``kv_valid``).
+
+    q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D); q_pos: (B, Sq) and kv_pos:
+    (B, Sk) int32 absolute positions, ``kv_pos < 0`` for an empty slot.
+    Scores in f32, masked pairs at −1e30, f32 softmax; GQA maps q head h
+    to kv head h // (H // Hkv).  A row with no visible key gets the mean
+    of v here (the −1e30 fill), 0 from the kernel.
+    """
+    _note("attention_cached", q)
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qf = q.float().reshape(B, Hkv, G, Sq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) \
+        * (1.0 / math.sqrt(D))
+    mask = positions_mask(q_pos, kv_pos, causal=causal, window=window)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return o.reshape(B, H, Sq, D).to(q.dtype)

@@ -1,4 +1,4 @@
-"""Mamba2 (SSD) blocks, no-cache path (port of ``repro/models/mamba2.py``).
+"""Mamba2 (SSD) blocks (port of ``repro/models/mamba2.py``).
 
 Per head h with state S ∈ R^{N×P} (N = ssm_state, P = ssm_head_dim):
     S_t = a_t · S_{t−1} + (Δ_t B_t) x_tᵀ        a_t = exp(Δ_t · A_h), A_h < 0
@@ -8,8 +8,9 @@ The recurrence goes through ``kernels.ops.ssd``: the hand-written kernel on
 the card, the plain chunked version on the CPU (the reference calls its XLA
 ``ssd_chunked`` here and never its Pallas kernel).  The operation order and
 dtypes follow the reference (the conv sums its taps in ``cfg.dtype``, x·Δ
-is cast to x's dtype), or bf16 parity drifts.  The single-step decode path
-waits for the serving slice.
+is cast to x's dtype), or bf16 parity drifts.  The conv keeps its last
+conv_width − 1 inputs as state; a single decode step is ``ssd_decode``,
+plain torch as the reference's XLA (one step needs no kernel).
 """
 from __future__ import annotations
 
@@ -24,9 +25,6 @@ from repro_torch.models.layers import dense_stack, rms_norm
 
 DT_MIN, DT_MAX = 1e-3, 1e-1  # softplus(dt_bias + dt_raw) clamp range
 F32_LEAVES = ("A_log", "dt_bias", "D")   # held in f32 whatever cfg.dtype is
-
-_DECODE = ("Mamba2 decode (ssd_decode, use_cache=True) waits for its slice "
-           "(ROADMAP, port queue: serving and decoder families)")
 
 
 def mamba_dims(cfg: ModelConfig):
@@ -65,12 +63,21 @@ def init_mamba_block(cfg: ModelConfig, n_layers: int, dtype,
     }
 
 
+def ssd_decode(x, a_log, B, C, s0):
+    """Single-step SSD.  x: (Bt, H, P); a_log: (Bt, H); B, C: (Bt, N);
+    s0: (Bt, H, N, P) → (y in x's dtype, new state f32)."""
+    xf, Bf, Cf = x.float(), B.float(), C.float()
+    S = torch.exp(a_log)[..., None, None] * s0 \
+        + Bf[:, None, :, None] * xf[:, :, None, :]
+    y = torch.einsum("bn,bhnp->bhp", Cf, S)
+    return y.to(x.dtype), S
+
+
 def mamba_block(cfg: ModelConfig, x: torch.Tensor, w, state, *,
                 use_cache: bool = False):
     """One Mamba2 layer, x: (Bt, T, d); state: dict(conv, S) with conv
-    (Bt, conv_width − 1, conv_dim) trailing inputs and S (Bt, H, N, P)."""
-    if use_cache:
-        raise NotImplementedError(_DECODE)
+    (Bt, conv_width − 1, conv_dim) trailing inputs and S (Bt, H, N, P).
+    A one-token step with ``use_cache`` is the decode step."""
     Bt, T, d = x.shape
     d_inner, H, P, N = mamba_dims(cfg)
     xn = rms_norm(x, w["ln"])
@@ -98,7 +105,13 @@ def mamba_block(cfg: ModelConfig, x: torch.Tensor, w, state, *,
     xh = xi.reshape(Bt, T, H, P).transpose(1, 2)          # (Bt, H, T, P)
     # fold dt into the input (standard SSD parameterization)
     xh_dt = xh * dt.transpose(1, 2)[..., None].to(xh.dtype)
-    y, S = ops.ssd(xh_dt, a_log, Bv, Cv, state["S"], chunk=cfg.chunk_size)
+    if T == 1 and use_cache:
+        y, S = ssd_decode(xh_dt[:, :, 0], a_log[:, :, 0], Bv[:, 0], Cv[:, 0],
+                          state["S"])
+        y = y[:, :, None]
+    else:
+        y, S = ops.ssd(xh_dt, a_log, Bv, Cv, state["S"],
+                       chunk=cfg.chunk_size)
     y = y + w["D"][None, :, None, None].to(y.dtype) * xh
     y = y.transpose(1, 2).reshape(Bt, T, d_inner)
     y = rms_norm(y, w["gn"]) * F.silu(z)

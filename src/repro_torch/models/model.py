@@ -1,18 +1,23 @@
-"""Model assembly of ``repro/models/model.py``: init and the feature map.
+"""Model assembly of ``repro/models/model.py``: init, forward, the decode
+cache and the feature map.
 
-``features`` is the FedPFT foundation feature map (the ``f`` in the paper's
-``w = h ∘ f``): the input embedding, the block stack, ``rms_norm``, and a
-mean-pool over positions in f32.  Three families run:
+``forward`` returns (logits, aux, cache): with ``use_cache`` it runs a
+prefill or decode step against ``init_cache``'s state, written in place.
+``features`` is the FedPFT foundation feature map (the ``f`` in the
+paper's ``w = h ∘ f``): the input embedding, the block stack,
+``rms_norm``, and a mean-pool over positions in f32.  Four families run:
 
+  dense   — token embedding, pre-norm GQA causal attention + SwiGLU blocks
   encoder — frame projection, bidirectional RoPE attention + GELU-MLP blocks
   ssm     — token embedding, an RWKV6 stack (``models/rwkv.py``)
   hybrid  — token embedding, a Mamba2 stack (``models/mamba2.py``) with ONE
             shared causal attention + SwiGLU block after every
-            ``attn_every`` layers (zamba2-style weight sharing)
+            ``attn_every`` layers (zamba2-style weight sharing), with one
+            KV cache per use of the shared block
 
 Parameters are a plain dict in the reference's layout: per-layer weights
-stacked on a leading ``(L, …)`` axis, ``x @ W`` orientation.  The dense /
-moe / vlm families wait for their slice.
+stacked on a leading ``(L, …)`` axis, ``x @ W`` orientation.  The moe and
+vlm families and the relu2 MLP are ROADMAP item 11.
 """
 from __future__ import annotations
 
@@ -24,12 +29,12 @@ from repro_torch import resolve_device
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (attention, dense_init, dense_stack,
-                                       mlp, rms_norm)
+from repro_torch.models.layers import (Positions, attention, dense_init,
+                                       dense_stack, mlp, rms_norm)
 
 Params = Dict[str, Any]
 
-FAMILIES = ("encoder", "ssm", "hybrid")
+FAMILIES = ("dense", "encoder", "ssm", "hybrid")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -40,9 +45,13 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} waits for its slice (ROADMAP, port "
-            "queue: serving and decoder families); the port runs the "
-            f"{', '.join(FAMILIES)} families")
+            f"family {cfg.family!r} is not ported yet (ROADMAP item 11: "
+            f"moe, vlm and relu2); the port runs the {', '.join(FAMILIES)} "
+            "families")
+    if cfg.family != "ssm" and cfg.mlp_variant not in ("swiglu", "gelu"):
+        raise NotImplementedError(
+            f"mlp_variant={cfg.mlp_variant!r} is not ported yet (ROADMAP "
+            "item 11: moe, vlm and relu2)")
 
 
 def _init_transformer_stack(cfg: ModelConfig, n_layers: int, dt,
@@ -88,7 +97,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     else:
         p["embed"] = dense_init((cfg.vocab_size, d), dt, generator, dev,
                                 scale=0.02)
-    if cfg.family == "ssm":
+    if cfg.family == "dense":
+        p["blocks"] = _init_transformer_stack(cfg, cfg.n_layers, dt,
+                                              generator, dev)
+    elif cfg.family == "ssm":
         p["blocks"] = rwkv_mod.init_rwkv_block(cfg, cfg.n_layers, dt,
                                                generator, dev)
     elif cfg.family == "hybrid":
@@ -98,6 +110,40 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     p["final_norm"] = torch.ones((d,), dtype=dt, device=dev)
     p["lm_head"] = dense_init((d, cfg.vocab_size), dt, generator, dev)
     return p
+
+
+def _kv_shape(cfg: ModelConfig, n: int, batch: int, max_seq: int,
+              window: int):
+    """(n, batch, S, Hkv, D): a dense cache of max_seq slots, or a ring of
+    min(max_seq, window) when windowed."""
+    S = min(max_seq, window) if window else max_seq
+    return (n, batch, S, cfg.n_kv_heads, cfg.head_dim)
+
+
+def n_shared_uses(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.attn_every
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, window: int = 0,
+               *, device: Optional[Union[str, torch.device]] = None) -> Any:
+    """Decode-time state sized for ``max_seq`` context: the RWKV6 state
+    (ssm), the Mamba2 state plus one KV cache per use of the shared block
+    (hybrid), or one KV cache per layer (dense).  On ``cuda`` unless
+    ``device="cpu"``."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    if cfg.family == "ssm":
+        return rwkv_mod.init_rwkv_state(cfg, batch, dev)
+
+    def kv(n):
+        shape = _kv_shape(cfg, n, batch, max_seq, window)
+        return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=dev),
+                "v": torch.zeros(shape, dtype=_dtype(cfg), device=dev)}
+    if cfg.family == "hybrid":
+        return {"mamba": mamba_mod.init_mamba_state(cfg, cfg.n_layers, batch,
+                                                    dev),
+                "shared_kv": kv(n_shared_uses(cfg))}
+    return kv(cfg.n_layers)
 
 
 def _embed_inputs(cfg: ModelConfig, params: Params, batch):
@@ -115,9 +161,9 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch):
 
 
 def _transformer_block(cfg: ModelConfig, x, w, *, positions,
-                       window: int = 0):
+                       window: int = 0, layer_cache=None):
     x = x + attention(rms_norm(x, w["ln1"]), w, cfg, positions=positions,
-                      window=window)
+                      window=window, layer_cache=layer_cache)
     return x + mlp(rms_norm(x, w["ln2"]), w, cfg)
 
 
@@ -125,40 +171,112 @@ def _layer(blocks: Params, layer: int) -> Params:
     return {k: v[layer] for k, v in blocks.items()}
 
 
-def _run_transformer(cfg: ModelConfig, x, blocks, *, positions,
+def _run_transformer(cfg: ModelConfig, x, blocks, cache=None, *, positions,
                      window: int = 0):
+    """The transformer stack; layer l attends with ``cache``'s slice l
+    when a cache is given."""
     for layer in range(cfg.n_layers):
-        x = _transformer_block(cfg, x, _layer(blocks, layer),
-                               positions=positions, window=window)
+        x = _transformer_block(
+            cfg, x, _layer(blocks, layer), positions=positions,
+            window=window,
+            layer_cache=None if cache is None else _layer(cache, layer))
     return x
 
 
-def _run_rwkv(cfg: ModelConfig, x, blocks):
-    """The RWKV6 stack from a zero state (every layer starts at zeros, so
-    one layer's zeros serve them all)."""
-    zero = {k: v[0] for k, v in rwkv_mod.init_rwkv_state(
-        cfg, x.shape[0], x.device, n_layers=1).items()}
+def _store(state, layer: int, new) -> None:
+    """Write one layer's new recurrent state into the stacked state."""
+    for k, v in new.items():
+        state[k][layer] = v
+
+
+def _run_rwkv(cfg: ModelConfig, x, blocks, state=None, *,
+              use_cache: bool = False):
+    """The RWKV6 stack.  Without ``state`` every layer starts at zeros
+    (one layer's zeros serve them all); with it, each layer starts from
+    its slice and its new state is written back."""
+    zero = None
+    if state is None:
+        zero = _layer(rwkv_mod.init_rwkv_state(cfg, x.shape[0], x.device,
+                                               n_layers=1), 0)
     for layer in range(cfg.n_layers):
-        x, _ = rwkv_mod.rwkv_block(cfg, x, _layer(blocks, layer), zero)
+        st = zero if state is None else _layer(state, layer)
+        x, new = rwkv_mod.rwkv_block(cfg, x, _layer(blocks, layer), st,
+                                     use_cache=use_cache)
+        if state is not None:
+            _store(state, layer, new)
     return x
 
 
-def _run_hybrid(cfg: ModelConfig, x, params, *, positions, window: int = 0):
+def _run_hybrid(cfg: ModelConfig, x, params, cache=None, *, positions,
+                window: int = 0, use_cache: bool = False):
     """Mamba2 stack with the shared block after layers attn_every − 1,
     2·attn_every − 1, … (n_layers // attn_every uses); the last
-    n_layers % attn_every layers are a tail without it.  The features path
-    keeps no KV cache, so the reference's zero ``shared_kv`` has no
-    counterpart here."""
+    n_layers % attn_every layers are a tail without it.  With ``cache``
+    each Mamba2 layer runs from its state and writes it back, and use u
+    of the shared block attends with ``cache["shared_kv"]``'s slice u.
+    Without it the reference's zero ``shared_kv`` has no counterpart."""
     A = cfg.attn_every
-    zero = {k: v[0] for k, v in mamba_mod.init_mamba_state(
-        cfg, 1, x.shape[0], x.device).items()}
+    zero = None
+    if cache is None:
+        zero = _layer(mamba_mod.init_mamba_state(cfg, 1, x.shape[0],
+                                                 x.device), 0)
     blocks = params["blocks"]
     for layer in range(cfg.n_layers):
-        x, _ = mamba_mod.mamba_block(cfg, x, _layer(blocks, layer), zero)
+        st = zero if cache is None else _layer(cache["mamba"], layer)
+        x, new = mamba_mod.mamba_block(cfg, x, _layer(blocks, layer), st,
+                                       use_cache=use_cache)
+        if cache is not None:
+            _store(cache["mamba"], layer, new)
         if (layer + 1) % A == 0:
+            kv = (_layer(cache["shared_kv"], layer // A) if use_cache
+                  else None)
             x = _transformer_block(cfg, x, params["shared_attn"],
-                                   positions=positions, window=window)
+                                   positions=positions, window=window,
+                                   layer_cache=kv)
     return x
+
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, params: Params, batch, *, cache: Any = None,
+            positions=None, window: int = 0, use_cache: bool = False):
+    """Returns (logits (B, S, V) f32, aux, cache).
+
+    ``positions``: absolute positions of the supplied tokens — None for
+    0 … S−1, an int for a shared first position, or per-row positions
+    ((B, S), or (B,) for one token a row; ``layers.Positions.of``).
+    With ``use_cache`` the step reads and writes ``cache`` (from
+    ``init_cache``) in place and returns it.  The ssm and hybrid stacks run from ``cache``'s
+    recurrent state (zeros without one) and write their new state into
+    it.  Logits are the ``cfg.dtype`` product cast to f32, as the
+    reference computes them, then soft-capped when the config says so.
+    """
+    _check_family(cfg)
+    x, _ = _embed_inputs(cfg, params, batch)
+    B, S, _ = x.shape
+    P = Positions.of(positions, B, S, x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        cache = cache if cache is not None else rwkv_mod.init_rwkv_state(
+            cfg, B, x.device)
+        x = _run_rwkv(cfg, x, params["blocks"], cache, use_cache=use_cache)
+    elif cfg.family == "hybrid":
+        if cache is None:
+            cache = {"mamba": mamba_mod.init_mamba_state(cfg, cfg.n_layers,
+                                                         B, x.device),
+                     "shared_kv": None}
+            use_cache = False
+        x = _run_hybrid(cfg, x, params, cache, positions=P, window=window,
+                        use_cache=use_cache)
+    else:
+        x = _run_transformer(cfg, x, params["blocks"],
+                             cache if use_cache else None, positions=P,
+                             window=window)
+    x = rms_norm(x, params["final_norm"])
+    logits = (x @ params["lm_head"]).float()
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits, aux, cache
 
 
 def final_hidden(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
@@ -180,9 +298,9 @@ def features(cfg: ModelConfig, params: Params, batch,
              ) -> torch.Tensor:
     """Mean-pooled final hidden state in f32: (B, d) features.
 
-    ``batch`` holds ``frames`` (encoder) or ``tokens`` (ssm, hybrid).  Runs
-    on ``cuda`` unless ``device="cpu"``; the batch is moved there and the
-    parameters must already live there.
+    ``batch`` holds ``frames`` (encoder) or ``tokens`` (dense, ssm,
+    hybrid).  Runs on ``cuda`` unless ``device="cpu"``; the batch is
+    moved there and the parameters must already live there.
     """
     dev = resolve_device(device)
     if params["final_norm"].device.type != dev.type:

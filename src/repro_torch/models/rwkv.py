@@ -1,4 +1,4 @@
-"""RWKV6 ("Finch") blocks, no-cache path (port of ``repro/models/rwkv.py``).
+"""RWKV6 ("Finch") blocks (port of ``repro/models/rwkv.py``).
 
 Recurrence per head, state S ∈ R^{Dh×Dh}:
     out_t = r_tᵀ (S_{t−1} + diag(u) k_t v_tᵀ)
@@ -6,8 +6,10 @@ Recurrence per head, state S ∈ R^{Dh×Dh}:
 
 The recurrence goes through ``kernels.ops.wkv6``: the hand-written kernel
 on the card, the plain chunked version on the CPU (the reference calls its
-XLA ``wkv6_chunked`` here and never its Pallas kernel).  The single-token
-decode path waits for the serving slice.
+XLA ``wkv6_chunked`` here and never its Pallas kernel), from the state's
+``S`` (zeros for features, the cache's for a prefill with state).  A
+single decode step is ``wkv6_decode``, plain torch as the reference's XLA
+(one step is a rank-one update, no kernel).
 """
 from __future__ import annotations
 
@@ -23,9 +25,6 @@ from repro_torch.models.layers import dense_stack, rms_norm
 LW_MIN = -8.0  # clamp per-step log-decay (w ≥ e^-8): numerics guard
 LORA = 64
 F32_LEAVES = ("w0", "u")   # held in f32 whatever cfg.dtype is
-
-_DECODE = ("RWKV6 decode (wkv6_decode, use_cache=True) waits for its slice "
-           "(ROADMAP, port queue: serving and decoder families)")
 
 
 def init_rwkv_block(cfg: ModelConfig, n_layers: int, dtype,
@@ -63,6 +62,17 @@ def init_rwkv_block(cfg: ModelConfig, n_layers: int, dtype,
     }
 
 
+def wkv6_decode(r, k, v, lw, u, s0):
+    """Single-token WKV6.  r, k, v, lw: (B, H, Dh); u: (H, Dh); s0:
+    (B, H, Dh, Dh) → (out in r's dtype, new state f32)."""
+    rc, kc, vc, lwc = (a.float() for a in (r, k, v, lw))
+    uf = u.float()
+    out = torch.einsum("bhd,bhde->bhe", rc, s0.float()) \
+        + torch.einsum("bhd,hd,bhd,bhe->bhe", rc, uf, kc, vc)
+    S = torch.exp(lwc)[..., None] * s0 + kc[..., None] * vc[..., None, :]
+    return out.to(r.dtype), S
+
+
 def _token_shift(x: torch.Tensor, last_x: torch.Tensor) -> torch.Tensor:
     """x: (B, T, d); last_x: (B, d) from the previous step → x_{t−1}."""
     return torch.cat([last_x[:, None, :], x[:, :-1, :]], dim=1)
@@ -70,9 +80,8 @@ def _token_shift(x: torch.Tensor, last_x: torch.Tensor) -> torch.Tensor:
 
 def rwkv_block(cfg: ModelConfig, x: torch.Tensor, w, state, *,
                use_cache: bool = False):
-    """One RWKV6 layer, x: (B, T, d); state: dict(sx_tm, sx_cm, S)."""
-    if use_cache:
-        raise NotImplementedError(_DECODE)
+    """One RWKV6 layer, x: (B, T, d); state: dict(sx_tm, sx_cm, S).  A
+    one-token step with ``use_cache`` is the decode step."""
     B, T, d = x.shape
     H, Dh = cfg.n_heads, cfg.ssm_head_dim
     # ---- time mix ----
@@ -93,7 +102,13 @@ def rwkv_block(cfg: ModelConfig, x: torch.Tensor, w, state, *,
     lw = -torch.exp(w["w0"].float()
                     + torch.tanh(xw @ w["wA1"]).float() @ w["wA2"].float())
     lw = heads(lw.clamp(LW_MIN, 0.0))
-    o, S = ops.wkv6(r, k, v, lw, w["u"], state["S"], chunk=cfg.chunk_size)
+    if T == 1 and use_cache:
+        o, S = wkv6_decode(r[:, :, 0], k[:, :, 0], v[:, :, 0], lw[:, :, 0],
+                           w["u"], state["S"])
+        o = o[:, :, None]
+    else:
+        o, S = ops.wkv6(r, k, v, lw, w["u"], state["S"],
+                        chunk=cfg.chunk_size)
     o = o.transpose(1, 2).reshape(B, T, d)
     o = rms_norm(o, w["gn"]) * g
     x = x + o @ w["wo"]

@@ -108,6 +108,9 @@ def test_configs_match_reference():
 
 @pytest.mark.parametrize("name", sorted(REDUCED))
 def test_unported_paths_name_their_roadmap_item(name):
+    """A one-token step with ``use_cache=True`` is the decode step and
+    runs; the moe and vlm families and the relu2 MLP still refuse, naming
+    their ROADMAP item."""
     _, tcfg = _cfgs(name)
     g = torch.Generator()
     g.manual_seed(0)
@@ -121,11 +124,15 @@ def test_unported_paths_name_their_roadmap_item(name):
         state = mamba2.init_mamba_state(tcfg, 1, 1, "cpu")
         block = mamba2.mamba_block
     state = {k: v[0] for k, v in state.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        block(tcfg, x, layer, state, use_cache=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_params(dataclasses.replace(tcfg, family="dense"), g,
-                      device="cpu")
+    y, new = block(tcfg, x, layer, state, use_cache=True)
+    assert y.shape == x.shape and bool(torch.isfinite(y.float()).all())
+    assert {k: v.shape for k, v in new.items()} == \
+        {k: v.shape for k, v in state.items()}
+    for over in ({"family": "moe"}, {"family": "vlm"},
+                 {"family": "dense", "mlp_variant": "relu2"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            M.init_params(dataclasses.replace(tcfg, **over), g,
+                          device="cpu")
 
 
 def backbone_rounds(name, seeds):

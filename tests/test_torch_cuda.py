@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from repro_torch.configs import FOUNDATION_STANDIN, get_config
+from repro_torch.kernels import attention_cached as CA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import gmm_estep as GE
 from repro_torch.kernels import checks, ops, ref
@@ -173,6 +174,78 @@ def test_rows_with_no_visible_key_are_zero(dev, dtype):
     k = torch.randn(1, 2, 4, 32, device=dev).to(dtype)
     out = FA.flash_attention(q, k, k, causal=True)
     assert float(out[:, :, :4].abs().max()) == 0.0
+
+
+# cached attention over per-row positions: kind, (B, Sq, Sk), window
+CACHED_GRID = [("ragged", (4, 1, 300), 0),      # dense decode, lengths 1…300
+               ("ragged", (3, 1, 300), 40),     # … under a window
+               ("ring", (4, 1, 96), 96),        # a wrapped ring, decode
+               ("chunk", (2, 64, 96), 96)]      # a ring prefill chunk
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("D", [64, 112, 128])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("kind,dims,window", CACHED_GRID)
+def test_attention_cached(dev, kind, dims, window, G, D, dtype, tol):
+    """Against ``ref.attention_positions_ref`` on the rows with a visible
+    key (the plain version gives a row with none the mean of v, the
+    kernel 0, checked on those rows)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(D + G)
+    B, Sq, Sk = dims
+    Hkv = 2
+    q, k, v, q_pos, kv_pos = checks.cached_inputs(
+        g, dev, B, G * Hkv, Hkv, Sq, Sk, D, window, kind, dtype)
+    before = CA.LAUNCHES["attention_cached"]
+    out = CA.attention_cached(q, k, v, q_pos, kv_pos, window=window)
+    assert CA.LAUNCHES["attention_cached"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    seen = ref.positions_mask(q_pos, kv_pos, window=window).any(-1)
+    exp = ref.attention_positions_ref(q, k, v, q_pos, kv_pos, window=window)
+    sel = seen[:, None, :].expand(out.shape[:3])
+    torch.testing.assert_close(out[sel], exp[sel], rtol=tol, atol=tol)
+    if (~sel).any():
+        assert float(out[~sel].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("tag", sorted(checks.CACHED_CASES))
+def test_attention_cached_check_cases(dev, tag):
+    """The chip smoke's shapes (granite-3-2b's and zamba2-7b's decode, a
+    wrapped ring, a ring chunk), bf16."""
+    B, H, Hkv, Sq, Sk, D, window, kind = checks.CACHED_CASES[tag]
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    q, k, v, q_pos, kv_pos = checks.cached_inputs(
+        g, dev, B, H, Hkv, Sq, Sk, D, window, kind, torch.bfloat16)
+    out = CA.attention_cached(q, k, v, q_pos, kv_pos, window=window)
+    seen = ref.positions_mask(q_pos, kv_pos, window=window).any(-1)
+    sel = seen[:, None, :].expand(out.shape[:3])
+    exp = ref.attention_positions_ref(q, k, v, q_pos, kv_pos, window=window)
+    torch.testing.assert_close(out[sel], exp[sel], rtol=5e-2, atol=5e-2)
+
+
+def test_attention_cached_refuses_what_it_cannot_run(dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    q, k, v, q_pos, kv_pos = checks.cached_inputs(
+        g, dev, 2, 4, 2, 1, 64, 64, 0, "ragged", torch.bfloat16)
+    before = CA.LAUNCHES["attention_cached"]
+    with pytest.raises(ValueError, match="CUDA"):
+        CA.attention_cached(q.cpu(), k.cpu(), v.cpu(), q_pos.cpu(),
+                            kv_pos.cpu())
+    with pytest.raises(ValueError, match="share"):
+        CA.attention_cached(q.half(), k.half(), v.half(), q_pos, kv_pos)
+    with pytest.raises(ValueError, match="kv_pos"):
+        CA.attention_cached(q, k, v, q_pos, kv_pos[:, :32])
+    with pytest.raises(ValueError, match="integers"):
+        CA.attention_cached(q, k, v, q_pos.float(), kv_pos)
+    flat = torch.randn(k.numel() + 1, generator=g, device=dev)
+    shifted = flat.to(torch.bfloat16)[1:].view(k.shape)  # base 2 B past 16
+    with pytest.raises(ValueError, match="16-byte"):
+        CA.attention_cached(q, shifted, v, q_pos, kv_pos)
+    assert CA.LAUNCHES["attention_cached"] == before
 
 
 @pytest.mark.parametrize("B,H,T,Dh,chunk,dtype,tol", [
@@ -517,3 +590,75 @@ def test_default_canonical_grid_at_d1280_stays_under_the_byte_bound(dev):
     grown = torch.cuda.memory_reserved() - r0
     assert grown <= cache.memory_bytes + (256 << 20), (grown,
                                                        cache.memory_bytes)
+
+
+def _to_cpu(tree):
+    return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("name,over", [("granite-3-2b", {}),
+                                       ("rwkv6-3b", {}),
+                                       ("zamba2-7b", {"n_layers": 5})])
+def test_prefill_and_decode_on_card_match_the_cpu_path(dev, name, over):
+    """A prefill of ragged length and two decode steps, four rows at their
+    own positions, through the kernels on the card against the plain CPU
+    path on the same weights (bf16); the decode steps launch
+    ``attention_cached`` (dense, hybrid) and no plain version."""
+    from repro_torch import serve as S
+    cfg = get_config(name).reduced(**over)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = M.init_params(cfg, g, device=dev)
+    cpu = _to_cpu(params)
+    tokens = torch.randint(1, cfg.vocab_size, (4, 40), device=dev)
+    lengths = np.asarray([37, 21, 30, 9])
+    out = {}
+    for where, p, tok in (("card", params, tokens),
+                          ("cpu", cpu, tokens.cpu())):
+        cache = M.init_cache(cfg, 4, 64, device=where.replace("card",
+                                                              "cuda"))
+        decode = S.make_decode_step(cfg)
+        rows = []
+        for b, L in enumerate(lengths):    # each row's prefill, its slot
+            view = {k: ({kk: vv[:, b:b + 1] for kk, vv in v.items()}
+                        if isinstance(v, dict) else v[:, b:b + 1])
+                    for k, v in cache.items()}
+            last, _ = S.make_prefill_step(cfg, 64)(
+                p, {"tokens": tok[b:b + 1, :L]}, cache=view)
+            rows.append(last)
+        steps = [torch.cat(rows)]
+        nxt = tok[np.arange(4), lengths][:, None]
+        ops.reset_launch_counts()
+        for i in range(2):
+            lg, _ = decode(p, cache, nxt, lengths + i)
+            steps.append(lg)
+        counts = ops.launch_counts()
+        out[where] = (torch.stack(steps).float().cpu(), counts)
+    (card, counts), (plain, _) = out["card"], out["cpu"]
+    torch.testing.assert_close(card, plain, rtol=5e-2, atol=5e-2)
+    if cfg.family != "ssm":
+        assert counts["attention_cached"] >= 2
+    assert not any(v for k, v in counts.items()
+                   if k.startswith("plain_on_cuda"))
+
+
+def test_batched_server_on_card_equals_sequential(dev):
+    """Granite-3-2b cut down, f32: the server's streams on the card equal
+    each prompt's own greedy generation on the card, token for token."""
+    import dataclasses as dc
+
+    from repro_torch import serve as S
+    from repro_torch.serve.server import BatchedServer, Request, ServerConfig
+    cfg = dc.replace(get_config("granite-3-2b").reduced(), dtype="float32")
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = M.init_params(cfg, g, device=dev)
+    prompts = [torch.randint(1, cfg.vocab_size, (L,), generator=g,
+                             device=dev) for L in (5, 19, 11, 3, 8)]
+    srv = BatchedServer(cfg, params, ServerConfig(n_slots=3, max_seq=64))
+    out = srv.run([Request(rid=i, prompt=p, max_new=6)
+                   for i, p in enumerate(prompts)])
+    for i, p in enumerate(prompts):
+        want = S.greedy_generate(cfg, params, p[None], 6, 64)[0].tolist()
+        assert out[i] == want
