@@ -51,6 +51,12 @@ HBM_BYTES_S = 3.35e12
 ESTEP_TOL = 3e-4           # tests/test_kernels.py
 ATTN_TOL_F32 = 2e-3
 ATTN_TOL_BF16 = 5e-2
+# attention_cached in bf16: the kernel and the plain version each round an
+# f32 result to bf16 (at most 1e-3 apart at these shapes, PERF.md §6)
+CACHED_TOL_BF16 = 1e-2
+# decode ≡ full forward on f32 weights, × max |logit|: between the sound
+# decodes and the controls of a faulty cache (PERF.md §6, PR 17)
+DECODE_TOL_F32 = 1e-4
 WKV6_TOL_F32 = 1e-4        # tests/test_wkv6_kernel.py
 SSD_TOL_F32 = 2e-4         # tests/test_ssd_kernel.py
 # bf16 recurrences: kernel and plain version each round one f32 result to
@@ -92,10 +98,8 @@ def graph_ms(torch, fn) -> float:
     return timer(torch, fn)
 
 
-def device_profile(torch, fn) -> dict:
-    """Wall time of one call of ``fn`` under torch.profiler, the device
-    time of the kernels it ran (top 8 by name) and the device's idle
-    share.  The profiler's own cost inflates the wall time."""
+def profiled(torch, fn):
+    """(the profiler's events, wall ms) of one call of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -104,8 +108,17 @@ def device_profile(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    return prof.key_averages(), wall_ms
+
+
+def device_profile(torch, fn, events=None) -> dict:
+    """Wall time of one call of ``fn`` under torch.profiler, the device
+    time of the kernels it ran (top 8 by name) and the device's idle
+    share.  The profiler's own cost inflates the wall time.  ``events``,
+    a ``profiled`` result, reads that call instead of making one."""
+    prof, wall_ms = events if events is not None else profiled(torch, fn)
     kernels = {}
-    for e in prof.key_averages():
+    for e in prof:
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             ms = float(getattr(e, "self_device_time_total", 0.0)) / 1e3
             if ms > 0:
@@ -356,7 +369,7 @@ def cached_checks(torch, dev, g, res):
                                               window=window)
             mask = ref.positions_mask(q_pos, kv_pos, window=window)
             sel = mask.any(-1)[:, None, :].expand(out.shape[:3])
-            tol = ATTN_TOL_BF16 if dt == torch.bfloat16 else ATTN_TOL_F32
+            tol = CACHED_TOL_BF16 if dt == torch.bfloat16 else ATTN_TOL_F32
             err = check_close(torch, "attention_cached", out[sel], exp[sel],
                               tol, case=tag, B=B, H=H, Hkv=Hkv, Sq=Sq,
                               Sk=int(kv_pos.shape[1]), D=D, window=window,
@@ -755,22 +768,146 @@ BF16_LOGIT_ULP = 1.0 / 64  # one bf16 step at logits of magnitude 2 … 4
 
 def host_split(torch, fn) -> dict:
     """One call of ``fn`` under torch.profiler: the device's idle share
-    (``device_profile``) and where the host's time went, the top 8 host
-    operations by their own time."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    (``device_profile``) and, from the same call, where the host's time
+    went, the top 8 host operations by their own time."""
+    events = profiled(torch, fn)
     host = {}
-    for e in prof.key_averages():
+    for e in events[0]:
         ms = float(getattr(e, "self_cpu_time_total", 0.0)) / 1e3
         if ms > 0:
             host[e.key[:80]] = host.get(e.key[:80], 0.0) + ms
     top = sorted(host.items(), key=lambda kv: -kv[1])[:8]
-    return {**device_profile(torch, fn), "host_self_ms_total":
+    return {**device_profile(torch, fn, events), "host_self_ms_total":
             sum(host.values()), "top_host_ms": top}
+
+
+def decode_vs_forward(torch, cfg, params, tag, prompt, nxt, max_seq,
+                      window, tol, separates=False):
+    """decode ≡ full forward (tests/test_archs.py:90 and :118): prefill
+    ``prompt`` (S tokens), decode ``nxt`` at position S, against
+    ``forward`` on the S + 1 tokens at the last position; raises unless
+    within ``tol`` × max |logit|.  Beside it, the same reading of two
+    controls that hand the decode a faulty cache: "stale", the prompt's
+    last token never written (a dense cache's row left zero, a ring's slot
+    holding the token W earlier, a recurrent state one token short), and
+    "pos+1", the token decoded one position late (no positions in the ssm
+    family).  ``separates``: also raise unless every control reads above
+    the limit, so that the check is shown to tell a faulty cache.
+    Returns (the sound reading, {control: reading})."""
+    from repro_torch import serve as SV
+    from repro_torch.models import model as M
+    L0 = int(prompt.shape[0])
+    full, _, _ = M.forward(cfg, params, {"tokens": torch.cat(
+        [prompt[None], nxt], 1)}, window=window)
+    exp = full[:, -1]
+    del full
+    prefill = SV.make_prefill_step(cfg, max_seq, window)
+    decode = SV.make_decode_step(cfg, window)
+
+    def decoded(context, pos):
+        _, cache = prefill(params, {"tokens": context[None]})
+        return decode(params, cache, nxt, pos)[0]
+
+    err = check_logits(torch, f"decode of {tag} ≡ full forward",
+                       decoded(prompt, L0), exp, tol, prompt=L0,
+                       window=window, dtype=cfg.dtype)
+    runs = {"stale": (prompt[:-1], L0)}
+    if cfg.family != "ssm":
+        runs["pos+1"] = (prompt, L0 + 1)
+    controls = {k: float((decoded(*a).float() - exp).abs().max())
+                for k, a in runs.items()}
+    bound = tol * float(exp.abs().max())
+    emit({"phase": "logit_control", "check": f"decode of {tag}",
+          "dtype": cfg.dtype, "sound_max_abs_err": err, "bound": bound,
+          "controls_max_abs_err": controls})
+    if separates and not min(controls.values()) > bound:
+        raise AssertionError(f"decode of {tag} ({cfg.dtype}): a faulty "
+                             f"cache reads within the limit {bound}: "
+                             f"{controls}")
+    return err, controls
+
+
+def streams_vs_greedy(torch, cfg, params, tag, prompts, out, max_new,
+                      max_seq, window, tie):
+    """The served streams ``out`` of the first ``N_SEQUENTIAL`` prompts
+    against each prompt's own ``greedy_generate``: a stream may leave it
+    only at a near-tie, a step whose sequential top-2 gap is under
+    ``tie``; every step before the first near-tie must match.  Returns
+    (per stream: steps checked, matched, first mismatch and its gap; the
+    share of tokens that matched)."""
+    from repro_torch import serve as SV
+    seq, matched, total = [], 0, 0
+    for i in range(N_SEQUENTIAL):
+        toks, gaps = SV.greedy_generate(cfg, params, prompts[i][None],
+                                        max_new, max_seq, window,
+                                        with_gaps=True)
+        toks, gaps = toks[0].tolist(), gaps[0].tolist()
+        stop = next((j for j, g in enumerate(gaps) if g < tie), len(gaps))
+        first = next((j for j, (a, b) in enumerate(zip(toks, out[i]))
+                      if a != b), None)
+        same = sum(a == b for a, b in zip(toks, out[i]))
+        matched, total = matched + same, total + len(toks)
+        seq.append({"rid": i, "checked_steps": stop, "matched": same,
+                    "steps": len(toks), "first_mismatch": first,
+                    "gap_at_first_mismatch": (None if first is None
+                                              else gaps[first])})
+        if first is not None and gaps[first] >= tie:
+            raise AssertionError(
+                f"{tag} ({cfg.dtype}): stream {i} leaves its "
+                f"greedy_generate at step {first}, where the top-2 gap "
+                f"{gaps[first]} is not a near-tie (< {tie}); {stop} steps "
+                "before the first one")
+    return seq, matched / total
+
+
+def cast_tree(tree, dtype):
+    return {k: cast_tree(v, dtype) if isinstance(v, dict) else
+            v.to(dtype) if v.is_floating_point() else v
+            for k, v in tree.items()}
+
+
+def f32_checks(torch, card, cfg, params, tag, prompts, nxt, max_new,
+               max_seq, window):
+    """The serving path's separating checks, on an f32 copy of the
+    weights, where two paths differ by f32 rounding alone: decode ≡ full
+    forward within ``DECODE_TOL_F32`` × max |logit| while each control of
+    a faulty cache reads above that; then the first ``N_SEQUENTIAL``
+    prompts served over 2 slots (two wait for a freed slot) against
+    their own ``greedy_generate`` up to the first near-tie (twice the f32
+    decode ≡ forward error).  No plain version may run."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve.server import BatchedServer, Request, ServerConfig
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = cast_tree(params, torch.float32)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    err, controls = decode_vs_forward(torch, cfg32, p32, tag, prompts[0],
+                                      nxt, max_seq, window, DECODE_TOL_F32,
+                                      separates=True)
+    srv = BatchedServer(cfg32, p32, ServerConfig(
+        n_slots=2, max_seq=max_seq, window=window))
+    reqs = [Request(rid=i, prompt=p, max_new=max_new)
+            for i, p in enumerate(prompts[:N_SEQUENTIAL])]
+    out = srv.run(reqs)
+    tie = 2.0 * err
+    seq, share = streams_vs_greedy(torch, cfg32, p32, tag, prompts, out,
+                                   max_new, max_seq, window, tie)
+    counts = ops.launch_counts()
+    plain = sum(v for k, v in counts.items() if k.startswith("plain_on"))
+    emit({"phase": "serve_f32", "model": cfg.name, "run": tag,
+          "card": card, "decode_vs_forward_max_abs_err": err,
+          "decode_controls_max_abs_err": controls, "tie_gap": tie,
+          "sequential": seq, "matched_share": share,
+          "s": time.perf_counter() - t0,
+          "launches": {k: v for k, v in counts.items()
+                       if v and not k.startswith("plain_on")},
+          "plain_on_cuda": plain})
+    del srv, p32
+    if plain:
+        raise AssertionError(f"{tag} (f32): plain versions ran on CUDA "
+                             "tensors")
 
 
 def serve_phase(torch, dev, card, cfg, params, tag, n_slots, max_seq, n_req,
@@ -780,12 +917,12 @@ def serve_phase(torch, dev, card, cfg, params, tag, n_slots, max_seq, n_req,
     continuous admission (prefill ms per bucket, decode-step ms, tokens/s),
     then the first ``N_SEQUENTIAL`` streams against their own
     ``greedy_generate`` up to the first near-tie, then one decode step
-    under the profiler.  Returns ``{tag + "/serve": launch counts}``."""
+    under the profiler, then ``f32_checks`` on an f32 copy of the weights.
+    Returns ``{tag + "/serve": launch counts}``."""
     import numpy as np
 
     from repro_torch import serve as SV
     from repro_torch.kernels import ops
-    from repro_torch.models import model as M
     from repro_torch.serve.server import BatchedServer, Request, ServerConfig
 
     rng = np.random.default_rng(0)
@@ -793,18 +930,12 @@ def serve_phase(torch, dev, card, cfg, params, tag, n_slots, max_seq, n_req,
     prompts = [torch.from_numpy(rng.integers(1, cfg.vocab_size, size=int(L)))
                .to(dev) for L in lens]
 
-    # ---- decode ≡ full forward (tests/test_archs.py:90 and :118)
-    p0, L0 = prompts[0], int(lens[0])
+    # ---- decode ≡ full forward (tests/test_archs.py:90 and :118) on the
+    # served bf16 weights; the f32 copy below is the check that separates
     nxt = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(1, 1))) \
         .to(dev)
-    full, _, _ = M.forward(cfg, params, {"tokens": torch.cat(
-        [p0[None], nxt], 1)}, window=window)
-    _, cache = SV.make_prefill_step(cfg, max_seq, window)(
-        params, {"tokens": p0[None]})
-    dec, _ = SV.make_decode_step(cfg, window)(params, cache, nxt, L0)
-    err = check_logits(torch, f"decode of {tag} ≡ full forward", dec,
-                       full[:, -1], ATTN_TOL_BF16, prompt=L0, window=window)
-    del cache, full
+    err, controls = decode_vs_forward(torch, cfg, params, tag, prompts[0],
+                                      nxt, max_seq, window, ATTN_TOL_BF16)
 
     # ---- the served run, counted
     srv = BatchedServer(cfg, params, ServerConfig(
@@ -835,31 +966,12 @@ def serve_phase(torch, dev, card, cfg, params, tag, n_slots, max_seq, n_req,
     out = {r.rid: r.out for r in reqs}
     n_tok = sum(len(v) for v in out.values())
 
-    # ---- batched ≡ sequential: a stream may leave its greedy_generate
-    # only at a near-tie, a step whose sequential top-2 gap is under twice
-    # the decode ≡ forward error (two bf16 paths that far apart can flip
-    # it); every step before the first near-tie must match
-    tie = max(2.0 * err, BF16_LOGIT_ULP)
-    seq, matched, total = [], 0, 0
-    for i in range(N_SEQUENTIAL):
-        toks, gaps = SV.greedy_generate(cfg, params, prompts[i][None],
-                                        max_new, max_seq, window,
-                                        with_gaps=True)
-        toks, gaps = toks[0].tolist(), gaps[0].tolist()
-        stop = next((j for j, g in enumerate(gaps) if g < tie), len(gaps))
-        first = next((j for j, (a, b) in enumerate(zip(toks, out[i]))
-                      if a != b), None)
-        same = sum(a == b for a, b in zip(toks, out[i]))
-        matched, total = matched + same, total + len(toks)
-        seq.append({"rid": i, "checked_steps": stop, "matched": same,
-                    "steps": len(toks), "first_mismatch": first,
-                    "gap_at_first_mismatch": (None if first is None
-                                              else gaps[first])})
-        if first is not None and gaps[first] >= tie:
-            raise AssertionError(
-                f"{tag}: stream {i} leaves its greedy_generate at step "
-                f"{first}, where the top-2 gap {gaps[first]} is not a "
-                f"near-tie (< {tie}); {stop} steps before the first one")
+    # ---- batched ≡ sequential up to the first near-tie: two bf16 paths
+    # as far apart as the decode ≡ forward error can flip a step whose
+    # top-2 gap is under twice that error
+    seq, share = streams_vs_greedy(torch, cfg, params, tag, prompts, out,
+                                   max_new, max_seq, window,
+                                   max(2.0 * err, BF16_LOGIT_ULP))
     prof = host_split(torch, lambda: srv._decode(
         params, srv.cache, srv.last_tok, srv.positions))
     plain = sum(v for k, v in counts.items() if k.startswith("plain_on"))
@@ -875,8 +987,10 @@ def serve_phase(torch, dev, card, cfg, params, tag, n_slots, max_seq, n_req,
           "decode_steps": len(step_ms),
           "decode_step_ms_median": float(np.median(step_ms)),
           "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
-          "decode_vs_forward_max_abs_err": err, "tie_gap": tie,
-          "sequential": seq, "matched_share": matched / total,
+          "decode_vs_forward_max_abs_err": err,
+          "decode_controls_max_abs_err": controls,
+          "tie_gap": max(2.0 * err, BF16_LOGIT_ULP),
+          "sequential": seq, "matched_share": share,
           "launches": {k: v for k, v in counts.items()
                        if v and not k.startswith("plain_on")},
           "plain_on_cuda": plain, "decode_step_profile": prof})
@@ -892,6 +1006,8 @@ def serve_phase(torch, dev, card, cfg, params, tag, n_slots, max_seq, n_req,
     if any(len(v) != max_new for v in out.values()):
         raise AssertionError(f"{tag}: a stream stopped short of {max_new}")
     del srv
+    f32_checks(torch, card, cfg, params, tag, prompts, nxt, max_new, max_seq,
+               window)
     return {f"{tag}/serve": counts}
 
 

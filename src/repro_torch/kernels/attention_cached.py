@@ -14,6 +14,7 @@ Takes CUDA tensors only; ``ops`` sends CPU tensors to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -25,21 +26,27 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 112, 128)
 ROWS = 16                  # query rows per block
 BK = 64                    # key slots per tile
-TARGET_BLOCKS = 2 * 132    # two blocks on each of the H100's SMs
+BLOCKS_PER_SM = 2          # the grid a split plan aims for, per SM
 
 LAUNCHES: Dict[str, int] = {"attention_cached": 0}
 _FN = None
 
 
-def split_plan(B: int, H: int, Hkv: int, Sq: int, Sk: int
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_plan(B: int, H: int, Hkv: int, Sq: int, Sk: int, n_sm: int
                ) -> Tuple[int, int]:
     """``(keys_per_split, n_split)``: the key range of one block and the
     number of ranges.  Splits are added until the grid holds about
-    ``TARGET_BLOCKS`` blocks (a decode step has only B·Hkv row tiles);
-    each range is a whole number of key tiles."""
+    ``BLOCKS_PER_SM`` blocks on each of the card's ``n_sm`` SMs (a decode
+    step has only B·Hkv row tiles); each range is a whole number of key
+    tiles.  n_split == 1 writes the output straight from the block."""
     tiles = -(-Sk // BK)
     blocks = B * Hkv * -(-(H // Hkv) * Sq // ROWS)
-    want = max(1, min(tiles, -(-TARGET_BLOCKS // blocks)))
+    want = max(1, min(tiles, -(-BLOCKS_PER_SM * n_sm // blocks)))
     per = -(-tiles // want)
     return per * BK, -(-tiles // per)
 
@@ -114,7 +121,8 @@ def attention_cached(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"Sq={Sq} Sk={Sk}")
     q_pos = q_pos.to(torch.int32).contiguous()
     kv_pos = kv_pos.to(torch.int32).contiguous()
-    per, n_split = split_plan(B, H, Hkv, Sq, Sk)
+    per, n_split = split_plan(B, H, Hkv, Sq, Sk, _sm_count(
+        dev.index if dev.index is not None else torch.cuda.current_device()))
     out = torch.empty((B, Sq, H, D), dtype=dt, device=dev).transpose(1, 2)
     if n_split > 1:
         part_acc = torch.empty((n_split, B * H * Sq, D), dtype=torch.float32,

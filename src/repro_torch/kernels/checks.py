@@ -56,13 +56,16 @@ SSD_LONG = (2, 2, 200, 64, 64, 256)
 
 # cached attention, tag: (B, H, Hkv, Sq, Sk, D, window, kind).  "ragged":
 # a dense cache at granite-3-2b's decode, each row at its own length 1 …
-# Sk; "ring": a ring of W = Sk slots with every row past W (wrapped);
-# "chunk": a ring prefill chunk of Sq queries at pos0 > 0 over
-# [old ring ∪ chunk]; then zamba2-7b's shared block at decode (Hkv = 32,
-# D = 112) and yi-34b's D = 128
+# Sk; "ring": a ring of W = Sk slots with every row past W (wrapped), at
+# the ring server's 4 slots; "chunk": a ring prefill chunk of Sq queries
+# at pos0 > 0 over [old ring ∪ chunk]; "prefill": the ring server's own
+# prefill, a whole prompt from pos0 = 0 into an empty ring (one block a
+# key range: no split); then zamba2-7b's shared block at decode (Hkv =
+# 32, D = 112) and yi-34b's D = 128
 CACHED_CASES = {"granite_decode": (8, 32, 8, 1, 1024, 64, 0, "ragged"),
-                "ring_wrap": (8, 32, 8, 1, 128, 64, 128, "ring"),
+                "ring_wrap": (4, 32, 8, 1, 128, 64, 128, "ring"),
                 "ring_chunk": (2, 32, 8, 64, 128, 64, 128, "chunk"),
+                "ring_prefill": (1, 32, 8, 300, 128, 64, 128, "prefill"),
                 "zamba2_decode": (4, 32, 32, 1, 640, 112, 0, "ragged"),
                 "d128_gqa": (2, 8, 2, 5, 300, 128, 0, "ragged")}
 
@@ -71,7 +74,8 @@ def cached_inputs(g: torch.Generator, dev, B, H, Hkv, Sq, Sk, D, window,
                   kind, dtype=torch.float32):
     """(q (B, H, Sq, D), k, v (B, Hkv, S_keys, D) as (B, S, Hkv, D)
     transposed like a cache, q_pos (B, Sq), kv_pos (B, S_keys)) for a
-    case of ``CACHED_CASES``; a "chunk" has S_keys = Sk + Sq."""
+    case of ``CACHED_CASES``; a "chunk" or "prefill" has S_keys =
+    Sk + Sq."""
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(dtype)
     rows = torch.arange(B, device=dev)[:, None]
@@ -84,8 +88,9 @@ def cached_inputs(g: torch.Generator, dev, B, H, Hkv, Sq, Sk, D, window,
         latest = Sk + 7 * rows + 3 * Sk * (rows % 2)
         q_pos = latest
         kv_pos = latest - torch.remainder(latest - j, Sk)
-    elif kind == "chunk":
-        p0 = Sk // 2 + 9 * rows          # some old slots still empty
+    elif kind in ("chunk", "prefill"):
+        # a chunk: some old slots still empty; a prefill: all of them
+        p0 = Sk // 2 + 9 * rows if kind == "chunk" else 0 * rows
         q_pos = p0 + torch.arange(Sq, device=dev)[None]
         old = p0 - 1 - torch.remainder(p0 - 1 - j, Sk)
         kv_pos = torch.cat([torch.where(old >= 0, old, -1), q_pos], 1)

@@ -22,7 +22,8 @@ from repro.configs import get_config as j_get_config
 from repro.models import model as JM
 from repro_torch import serve as S
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.kernels import ref
+from repro_torch.kernels import attention_cached as CA
+from repro_torch.kernels import checks, ref
 from repro_torch.models import layers
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -273,6 +274,22 @@ def test_positions_ref_matches_the_reference_sdpa(causal, window):
         _t(q_pos)[None], _t(kv_pos)[None], causal=causal, window=window)
     np.testing.assert_allclose(got.transpose(1, 2).numpy(), np.asarray(exp),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_sm", [1, 132])
+@pytest.mark.parametrize("tag", sorted(checks.CACHED_CASES))
+def test_split_plan_covers_the_keys_in_whole_tiles(tag, n_sm):
+    """Each check case's key ranges are whole 64-key tiles, none empty,
+    covering every key.  On one SM nothing splits; at the H100's 132 the
+    ring server's prefill runs unsplit (the kernel's branch that writes
+    the output from the block) and every other case splits (the combine
+    pass): the chip smoke's cases hold both branches."""
+    B, H, Hkv, Sq, Sk, D, window, kind = checks.CACHED_CASES[tag]
+    n_keys = Sk + Sq if kind in ("chunk", "prefill") else Sk
+    per, n_split = CA.split_plan(B, H, Hkv, Sq, n_keys, n_sm)
+    assert per % CA.BK == 0 and n_split >= 1
+    assert (n_split - 1) * per < n_keys <= n_split * per
+    assert (n_split == 1) == (n_sm == 1 or kind == "prefill")
 
 
 def test_configs_match_reference():
