@@ -6,10 +6,11 @@
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each one against its plain PyTorch version on the card and times
 both, then runs the paper's Algorithm 1 through the port's entry points
-with three foundation backbones, each at its full width and depth with
+with four foundation backbones, each at its full width and depth with
 random weights from a seed: hubert-xlarge (encoder, 48 layers, d_model
-1280), rwkv6-3b (RWKV6, 32 layers, d_model 2560) and zamba2-7b (81
-Mamba2 layers and a shared attention block, d_model 3584).  Each path:
+1280), rwkv6-3b (RWKV6, 32 layers, d_model 2560), zamba2-7b (81 Mamba2
+layers and a shared attention block, d_model 3584) and
+granite-moe-3b-a800m (32 layers of 40 experts, top 8).  Each path:
 foundation features → per-client class-wise diag GMMs by batched EM →
 bf16 wire → the server's fused head → accuracy against the centralized
 oracle.  Launch counters, zeroed before each path and read after it, show
@@ -28,6 +29,15 @@ ingest (bitwise the fused round; 56 of 120 slots evicted at capacity
 cohort signature: bitwise the eager server, faster than it, no capture
 in a warm streaming round) and a chaos round under a fault plan (bitwise
 an offline round over its survivors).
+
+Serving: granite-3-2b's server (dense and ring) and FedPFTService, each
+backbone's server, and the wide configs at full width with their depth
+cut (pixtral-12b's image prefix at head dim 160, nemotron-4-340b's
+squared-ReLU MLP at 192, grok-1's experts through the server, granite-
+34b's MQA): prefill and decode through the kernels, then decode ≡ full
+forward on f32 weights with two faulty-cache controls.  Flash and cached
+attention are held at head dims 160 and 192 and at a group of 48, and
+one MoE layer at full width on the card against the CPU.
 
 Prints one JSON object per line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -296,6 +306,10 @@ def kernel_phase(torch, dev, card):
                 q, k, v, **kw)),
             library_device_ms=device_ms(torch, lambda: sdpa(
                 q, k, v, is_causal=causal)),
+            graph_ms=graph_ms(torch, lambda: FA.flash_attention(q, k, v,
+                                                                **kw)),
+            library_graph_ms=graph_ms(torch, lambda: sdpa(
+                q, k, v, is_causal=causal)),
             flops=4.0 * B * H * pairs * D,
             bytes=2.0 * (2 * B * H * Sq * D + 2 * B * Hkv * Sk * D),
             peak=BF16_FLOPS)
@@ -310,8 +324,10 @@ def kernel_phase(torch, dev, card):
         if masked != 0.0:
             raise AssertionError(f"fully masked rows gave {masked}, not 0")
 
+    flash_cases(torch, dev, g, res)
     recurrent_checks(torch, dev, g, res)
     cached_checks(torch, dev, g, res)
+    moe_layer_checks(torch, card)
 
     for name, r in res.items():
         r["bound_ms"] = 1e3 * max(r["flops"] / r["peak"],
@@ -329,6 +345,86 @@ def kernel_phase(torch, dev, card):
                                          "bound_by", "design_bound_ms")
                      if k in row}})
     return res
+
+
+def flash_cases(torch, dev, g, res):
+    """Flash at the wide heads and the widest group
+    (``kernels.checks.FLASH_CASES``: pixtral-12b's D = 160 prefill,
+    nemotron-4-340b's D = 192, granite-34b's MQA), bf16 and f32 against
+    the plain version; bf16 timed beside SDPA (its K and V repeated over
+    the group: a yardstick, never the path)."""
+    from repro_torch.kernels import checks, ref
+    from repro_torch.kernels import flash_attention as FA
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for tag, (B, H, Hkv, Sq, Sk, D, causal) in checks.FLASH_CASES.items():
+        for dt in (torch.bfloat16, torch.float32):
+            q = torch.randn(B, H, Sq, D, generator=g, device=dev).to(dt)
+            k, v = (torch.randn(B, Hkv, Sk, D, generator=g, device=dev)
+                    .to(dt) for _ in range(2))
+            tol = ATTN_TOL_BF16 if dt == torch.bfloat16 else ATTN_TOL_F32
+            err = check_close(torch, "flash_attention",
+                              FA.flash_attention(q, k, v, causal=causal),
+                              ref.attention_ref(q, k, v, causal=causal), tol,
+                              case=tag, B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D,
+                              causal=causal, dtype=str(dt))
+            if dt != torch.bfloat16:
+                continue
+            kx, vx = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+
+            def call():
+                return FA.flash_attention(q, k, v, causal=causal)
+
+            def lib():
+                return sdpa(q, kx, vx, is_causal=causal)
+            pairs = Sq * (Sq + 1) / 2 if causal else Sq * Sk
+            res[f"flash_attention/{tag}"] = dict(
+                case=tag, max_abs_err=err, shape=[B, H, Hkv, Sq, Sk, D],
+                causal=causal, ms=time_ms(torch, call),
+                plain_ms=time_ms(torch, lambda: ref.attention_ref(
+                    q, k, v, causal=causal)),
+                library_ms=time_ms(torch, lib),
+                device_ms=device_ms(torch, call),
+                library_device_ms=device_ms(torch, lib),
+                graph_ms=graph_ms(torch, call),
+                library_graph_ms=graph_ms(torch, lib),
+                flops=4.0 * B * H * pairs * D,
+                bytes=2.0 * (2 * B * H * Sq * D + 2 * B * Hkv * Sk * D),
+                peak=BF16_FLOPS)
+            del q, k, v, kx, vx
+
+
+def moe_layer_checks(torch, card):
+    """One MoE layer at full width in f32 (``kernels.checks.MOE_CASES``)
+    on the card against the same layer on the CPU, same inputs: the same
+    routes in the same order, the same drops, the output within 1e-5 ×
+    max |y|."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import checks
+    for tag, (name, T) in checks.MOE_CASES.items():
+        cfg = dataclasses.replace(get_config(name), dtype="float32")
+        g = torch.Generator()
+        g.manual_seed(0)
+        x, w = checks.moe_inputs(g, cfg, T)
+        t0 = time.perf_counter()
+        y, routes, drops = checks.moe_run(cfg, x, w)
+        cpu_s = time.perf_counter() - t0
+        yc, routes_c, drops_c = checks.moe_run(
+            cfg, x.cuda(), {k: v.cuda() for k, v in w.items()})
+        err = float((yc.cpu() - y).abs().max())
+        scale = float(y.abs().max())
+        same = bool(torch.equal(routes_c.cpu(), routes))
+        emit({"phase": "moe_layer_check", "case": tag, "model": name,
+              "card": card, "tokens": T, "d_model": cfg.d_model,
+              "experts": cfg.n_experts, "top_k": cfg.top_k,
+              "routes_equal": same, "dropped": drops, "dropped_card": drops_c,
+              "assignments": T * cfg.top_k, "max_abs_err": err,
+              "max_abs": scale, "bound": 1e-5 * scale, "cpu_s": cpu_s})
+        if not (same and drops == drops_c and err <= 1e-5 * scale):
+            raise AssertionError(f"moe layer {tag}: card and CPU differ "
+                                 f"(routes equal {same}, drops {drops_c} "
+                                 f"vs {drops}, max abs err {err})")
 
 
 def cached_work(q, kv_pos, q_pos, Hkv, window):
@@ -571,6 +667,7 @@ PATHS = {
     "zamba2-7b": {"ssd": lambda cfg: cfg.n_layers,
                   "flash_attention": lambda cfg: cfg.n_layers
                   // cfg.attn_every},
+    "granite-moe-3b-a800m": {"flash_attention": lambda cfg: cfg.n_layers},
 }
 
 
@@ -593,6 +690,7 @@ def main_path(torch, dev, card, name, keep=None, extra=None):
     from repro_torch.core import head as H
     from repro_torch.fl import api as A
     from repro_torch.kernels import ops
+    from repro_torch.models import layers
     from repro_torch.models import model as M
 
     cfg = get_config(name)
@@ -629,10 +727,15 @@ def main_path(torch, dev, card, name, keep=None, extra=None):
     ops.reset_launch_counts()
     # ---- the counted run: features → clients → wire → head → accuracy
     t0 = time.perf_counter()
-    feats = feats_of(inp)
-    feats_t = feats_of(inp_t)
+    with layers.record_moe() as moe_rec:
+        feats = feats_of(inp)
+        feats_t = feats_of(inp_t)
     torch.cuda.synchronize()
     t_feat = time.perf_counter() - t0
+    # (token, expert) assignments dropped by MoE capacity, per batch
+    moe_drops = [sum(int(dr) for _, dr in moe_rec[i:i + cfg.n_layers])
+                 / sum(n for n, _ in moe_rec[i:i + cfg.n_layers])
+                 for i in range(0, len(moe_rec), cfg.n_layers)]
     y_dev, yt_dev = torch.from_numpy(y).to(dev), torch.from_numpy(yt).to(dev)
     clients = [(feats[p], y_dev[p]) for p in D.iid_shards(len(y), 4)]
     sess = A.FedSession(n_classes=10, summarizer=A.GMMSummarizer(
@@ -672,7 +775,10 @@ def main_path(torch, dev, card, name, keep=None, extra=None):
           "heldout_loglik_mean": sum(heldout) / len(heldout),
           "launches": {k: v for k, v in counts.items()
                        if v and not k.startswith("plain_on")},
-          "plain_on_cuda": sum(plain.values())})
+          "plain_on_cuda": sum(plain.values()),
+          **({"moe_drop_share_per_batch": moe_drops,
+              "moe_drop_share_mean": sum(moe_drops) / len(moe_drops)}
+             if moe_drops else {})})
     if not (torch.isfinite(feats).all() and torch.isfinite(feats_t).all()
             and feats.shape == (len(y), cfg.d_model)):
         raise AssertionError(f"{name}: features are not finite "
@@ -698,6 +804,9 @@ def main_path(torch, dev, card, name, keep=None, extra=None):
     if any(plain.values()):
         raise AssertionError(f"{name}: plain versions ran on CUDA tensors: "
                              f"{plain}")
+    if cfg.n_experts and len(moe_drops) != n_batches:
+        raise AssertionError(f"{name}: {len(moe_rec)} MoE calls, not "
+                             f"{cfg.n_layers} per batch")
 
     # where the time goes: one features batch (and, for the encoder's
     # round, one client and the server)
@@ -755,6 +864,8 @@ def main_path(torch, dev, card, name, keep=None, extra=None):
 # tokens each generates; granite-3-2b also runs a ring of 128 slots
 SERVE = {"granite-3-2b": dict(n_slots=8, max_seq=1024, n_req=24,
                               lengths=(16, 512), max_new=32),
+         "granite-moe-3b-a800m": dict(n_slots=4, max_seq=640, n_req=8,
+                                      lengths=(64, 512), max_new=16),
          "granite-3-2b/ring": dict(n_slots=4, max_seq=1024, n_req=4,
                                    lengths=(200, 400), max_new=32,
                                    window=128),
@@ -782,35 +893,42 @@ def host_split(torch, fn) -> dict:
 
 
 def decode_vs_forward(torch, cfg, params, tag, prompt, nxt, max_seq,
-                      window, tol, separates=False):
+                      window, tol, separates=False, img=None, strict=True):
     """decode ≡ full forward (tests/test_archs.py:90 and :118): prefill
-    ``prompt`` (S tokens), decode ``nxt`` at position S, against
-    ``forward`` on the S + 1 tokens at the last position; raises unless
-    within ``tol`` × max |logit|.  Beside it, the same reading of two
-    controls that hand the decode a faulty cache: "stale", the prompt's
-    last token never written (a dense cache's row left zero, a ring's slot
-    holding the token W earlier, a recurrent state one token short), and
-    "pos+1", the token decoded one position late (no positions in the ssm
-    family).  ``separates``: also raise unless every control reads above
-    the limit, so that the check is shown to tell a faulty cache.
-    Returns (the sound reading, {control: reading})."""
+    ``prompt`` (S tokens, after a vlm's image prefix ``img``), decode
+    ``nxt`` at position n_img + S, against ``forward`` on the S + 1
+    tokens at the last position; raises unless within ``tol`` × max
+    |logit| (``strict=False``: only reads it).  Beside it, the same
+    reading of two controls that hand the decode a faulty cache: "stale",
+    the prompt's last token never written (a dense cache's row left zero,
+    a ring's slot holding the token W earlier, a recurrent state one
+    token short), and "pos+1", the token decoded one position late (no
+    positions in the ssm family).  ``separates``: also raise unless every
+    control reads above the limit, so that the check is shown to tell a
+    faulty cache.  Returns (the sound reading, {control: reading})."""
     from repro_torch import serve as SV
     from repro_torch.models import model as M
-    L0 = int(prompt.shape[0])
+    L0 = int(prompt.shape[0]) + M.n_img(cfg)
+    extra = {} if img is None else {"img": img}
     full, _, _ = M.forward(cfg, params, {"tokens": torch.cat(
-        [prompt[None], nxt], 1)}, window=window)
+        [prompt[None], nxt], 1), **extra}, window=window)
     exp = full[:, -1]
     del full
     prefill = SV.make_prefill_step(cfg, max_seq, window)
     decode = SV.make_decode_step(cfg, window)
 
     def decoded(context, pos):
-        _, cache = prefill(params, {"tokens": context[None]})
+        _, cache = prefill(params, {"tokens": context[None], **extra})
         return decode(params, cache, nxt, pos)[0]
 
-    err = check_logits(torch, f"decode of {tag} ≡ full forward",
-                       decoded(prompt, L0), exp, tol, prompt=L0,
-                       window=window, dtype=cfg.dtype)
+    shape = dict(prompt=L0, window=window, dtype=cfg.dtype,
+                 capacity_factor=cfg.capacity_factor if cfg.n_experts
+                 else None)
+    if strict:
+        err = check_logits(torch, f"decode of {tag} ≡ full forward",
+                           decoded(prompt, L0), exp, tol, **shape)
+    else:
+        err = float((decoded(prompt, L0).float() - exp).abs().max())
     runs = {"stale": (prompt[:-1], L0)}
     if cfg.family != "ssm":
         runs["pos+1"] = (prompt, L0 + 1)
@@ -818,13 +936,27 @@ def decode_vs_forward(torch, cfg, params, tag, prompt, nxt, max_seq,
                 for k, a in runs.items()}
     bound = tol * float(exp.abs().max())
     emit({"phase": "logit_control", "check": f"decode of {tag}",
-          "dtype": cfg.dtype, "sound_max_abs_err": err, "bound": bound,
-          "controls_max_abs_err": controls})
+          "sound_max_abs_err": err, "bound": bound, "checked": strict,
+          "controls_max_abs_err": controls, **shape})
     if separates and not min(controls.values()) > bound:
         raise AssertionError(f"decode of {tag} ({cfg.dtype}): a faulty "
                              f"cache reads within the limit {bound}: "
                              f"{controls}")
     return err, controls
+
+
+def dropless(cfg):
+    """``cfg`` with MoE capacity 8 (tests/test_archs.py:94): no
+    assignment is dropped, so prefill, decode and a full forward, whose
+    groups differ, compute the same function."""
+    import dataclasses
+    return (dataclasses.replace(cfg, capacity_factor=8.0) if cfg.n_experts
+            else cfg)
+
+
+def drops_of(rec) -> int:
+    """Assignments dropped over a ``layers.record_moe`` record."""
+    return int(sum(int(d) for _, d in rec))
 
 
 def streams_vs_greedy(torch, cfg, params, tag, prompts, out, max_new,
@@ -874,26 +1006,30 @@ def f32_checks(torch, card, cfg, params, tag, prompts, nxt, max_new,
     a faulty cache reads above that; then the first ``N_SEQUENTIAL``
     prompts served over 2 slots (two wait for a freed slot) against
     their own ``greedy_generate`` up to the first near-tie (twice the f32
-    decode ≡ forward error).  No plain version may run."""
+    decode ≡ forward error).  No plain version may run.  A MoE model runs
+    these dropless (``dropless``; no assignment may drop), then reads
+    decode ≡ forward once more at its own capacity factor."""
     import dataclasses
 
     from repro_torch.kernels import ops
+    from repro_torch.models import layers
     from repro_torch.serve.server import BatchedServer, Request, ServerConfig
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cfg32 = dropless(dataclasses.replace(cfg, dtype="float32"))
     p32 = cast_tree(params, torch.float32)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    err, controls = decode_vs_forward(torch, cfg32, p32, tag, prompts[0],
-                                      nxt, max_seq, window, DECODE_TOL_F32,
-                                      separates=True)
-    srv = BatchedServer(cfg32, p32, ServerConfig(
-        n_slots=2, max_seq=max_seq, window=window))
-    reqs = [Request(rid=i, prompt=p, max_new=max_new)
-            for i, p in enumerate(prompts[:N_SEQUENTIAL])]
-    out = srv.run(reqs)
-    tie = 2.0 * err
-    seq, share = streams_vs_greedy(torch, cfg32, p32, tag, prompts, out,
-                                   max_new, max_seq, window, tie)
+    with layers.record_moe() as rec:
+        err, controls = decode_vs_forward(torch, cfg32, p32, tag,
+                                          prompts[0], nxt, max_seq, window,
+                                          DECODE_TOL_F32, separates=True)
+        srv = BatchedServer(cfg32, p32, ServerConfig(
+            n_slots=2, max_seq=max_seq, window=window))
+        reqs = [Request(rid=i, prompt=p, max_new=max_new)
+                for i, p in enumerate(prompts[:N_SEQUENTIAL])]
+        out = srv.run(reqs)
+        tie = 2.0 * err
+        seq, share = streams_vs_greedy(torch, cfg32, p32, tag, prompts, out,
+                                       max_new, max_seq, window, tie)
     counts = ops.launch_counts()
     plain = sum(v for k, v in counts.items() if k.startswith("plain_on"))
     emit({"phase": "serve_f32", "model": cfg.name, "run": tag,
@@ -903,11 +1039,37 @@ def f32_checks(torch, card, cfg, params, tag, prompts, nxt, max_new,
           "s": time.perf_counter() - t0,
           "launches": {k: v for k, v in counts.items()
                        if v and not k.startswith("plain_on")},
-          "plain_on_cuda": plain})
-    del srv, p32
+          "plain_on_cuda": plain, "moe_dropped": drops_of(rec)})
+    del srv
     if plain:
         raise AssertionError(f"{tag} (f32): plain versions ran on CUDA "
                              "tensors")
+    if drops_of(rec):
+        raise AssertionError(f"{tag} (f32, dropless): {drops_of(rec)} "
+                             "assignments dropped")
+    if cfg.n_experts:
+        moe_own_capacity(torch, card, dataclasses.replace(
+            cfg, dtype="float32"), p32, tag, prompts[0], nxt, max_seq,
+            window)
+    del p32
+
+
+def moe_own_capacity(torch, card, cfg, params, tag, prompt, nxt, max_seq,
+                     window, img=None):
+    """The f32 decode ≡ forward reading at the config's own capacity
+    factor, not held to the limit: the full forward, the prefill and the
+    decode each group their tokens differently, so their drops differ.
+    One line: the reading and the share of assignments dropped."""
+    from repro_torch.models import layers
+    with layers.record_moe() as rec:
+        err, _ = decode_vs_forward(torch, cfg, params, tag, prompt, nxt,
+                                   max_seq, window, DECODE_TOL_F32,
+                                   img=img, strict=False)
+    emit({"phase": "moe_drops", "model": cfg.name, "run": tag, "card": card,
+          "capacity_factor": cfg.capacity_factor,
+          "decode_vs_forward_max_abs_err": err, "dropped": drops_of(rec),
+          "assignments": sum(n for n, _ in rec),
+          "drop_share": drops_of(rec) / max(1, sum(n for n, _ in rec))})
 
 
 def serve_phase(torch, dev, card, cfg, params, tag, n_slots, max_seq, n_req,
@@ -918,11 +1080,17 @@ def serve_phase(torch, dev, card, cfg, params, tag, n_slots, max_seq, n_req,
     then the first ``N_SEQUENTIAL`` streams against their own
     ``greedy_generate`` up to the first near-tie, then one decode step
     under the profiler, then ``f32_checks`` on an f32 copy of the weights.
+    A MoE model serves at its own capacity factor and reports the share
+    of assignments dropped; its decode ≡ forward runs dropless, and its
+    streams are not held to ``greedy_generate`` here: a bucketed prefill
+    groups its padded prompt otherwise than an exact-length one, so their
+    drops differ (``f32_checks`` holds them dropless).
     Returns ``{tag + "/serve": launch counts}``."""
     import numpy as np
 
     from repro_torch import serve as SV
     from repro_torch.kernels import ops
+    from repro_torch.models import layers
     from repro_torch.serve.server import BatchedServer, Request, ServerConfig
 
     rng = np.random.default_rng(0)
@@ -934,8 +1102,9 @@ def serve_phase(torch, dev, card, cfg, params, tag, n_slots, max_seq, n_req,
     # served bf16 weights; the f32 copy below is the check that separates
     nxt = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(1, 1))) \
         .to(dev)
-    err, controls = decode_vs_forward(torch, cfg, params, tag, prompts[0],
-                                      nxt, max_seq, window, ATTN_TOL_BF16)
+    err, controls = decode_vs_forward(torch, dropless(cfg), params, tag,
+                                      prompts[0], nxt, max_seq, window,
+                                      ATTN_TOL_BF16)
 
     # ---- the served run, counted
     srv = BatchedServer(cfg, params, ServerConfig(
@@ -947,20 +1116,21 @@ def serve_phase(torch, dev, card, cfg, params, tag, n_slots, max_seq, n_req,
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t_run = time.perf_counter()
-    while pending or any(r is not None for r in srv.active):
-        while pending and srv.free_slots():
-            L = int(pending[0].prompt.shape[0])
-            key = (SV.pow2_bucket(L, srv.scfg.min_bucket, max_seq)
-                   if srv.bucketed else L)
-            t0 = time.perf_counter()
-            srv.submit(pending.pop(0))     # ends on the first token's sync
-            prefill_ms.setdefault(key, []).append(
-                1e3 * (time.perf_counter() - t0))
-        if any(r is not None for r in srv.active):
-            t0 = time.perf_counter()
-            srv.step()                     # ends on the tokens' sync
-            step_ms.append(1e3 * (time.perf_counter() - t0))
-    torch.cuda.synchronize()
+    with layers.record_moe() as rec:
+        while pending or any(r is not None for r in srv.active):
+            while pending and srv.free_slots():
+                L = int(pending[0].prompt.shape[0])
+                key = (SV.pow2_bucket(L, srv.scfg.min_bucket, max_seq)
+                       if srv.bucketed else L)
+                t0 = time.perf_counter()
+                srv.submit(pending.pop(0))  # ends on the first token's sync
+                prefill_ms.setdefault(key, []).append(
+                    1e3 * (time.perf_counter() - t0))
+            if any(r is not None for r in srv.active):
+                t0 = time.perf_counter()
+                srv.step()                  # ends on the tokens' sync
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
     counts = ops.launch_counts()
     out = {r.rid: r.out for r in reqs}
@@ -969,9 +1139,9 @@ def serve_phase(torch, dev, card, cfg, params, tag, n_slots, max_seq, n_req,
     # ---- batched ≡ sequential up to the first near-tie: two bf16 paths
     # as far apart as the decode ≡ forward error can flip a step whose
     # top-2 gap is under twice that error
-    seq, share = streams_vs_greedy(torch, cfg, params, tag, prompts, out,
-                                   max_new, max_seq, window,
-                                   max(2.0 * err, BF16_LOGIT_ULP))
+    seq, share = (None, None) if cfg.n_experts else streams_vs_greedy(
+        torch, cfg, params, tag, prompts, out, max_new, max_seq, window,
+        max(2.0 * err, BF16_LOGIT_ULP))
     prof = host_split(torch, lambda: srv._decode(
         params, srv.cache, srv.last_tok, srv.positions))
     plain = sum(v for k, v in counts.items() if k.startswith("plain_on"))
@@ -993,7 +1163,10 @@ def serve_phase(torch, dev, card, cfg, params, tag, n_slots, max_seq, n_req,
           "sequential": seq, "matched_share": share,
           "launches": {k: v for k, v in counts.items()
                        if v and not k.startswith("plain_on")},
-          "plain_on_cuda": plain, "decode_step_profile": prof})
+          "plain_on_cuda": plain, "decode_step_profile": prof,
+          **({"capacity_factor": cfg.capacity_factor,
+              "moe_drop_share": drops_of(rec) / sum(n for n, _ in rec)}
+             if cfg.n_experts else {})})
     want = {"flash_attention": cfg.family != "ssm" and window == 0,
             "attention_cached": cfg.family != "ssm",
             "wkv6": cfg.family == "ssm", "ssd": cfg.family == "hybrid"}
@@ -1040,6 +1213,179 @@ def serving_paths(torch, dev, card):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+# the wide and grouped configs at full width with random bf16 weights from
+# seed 0, the depth cut (``dataclasses.replace(cfg, n_layers=…)``): the
+# depth run, the f32 check's depth, rows, prompt tokens and decode steps;
+# pixtral-12b also extracts features of ``features`` samples, and grok-1
+# serves its rows through BatchedServer (prompt lengths drawn from a range)
+WIDE = {"pixtral-12b": dict(depth=40, f32_depth=4, rows=2, prompt=64,
+                            steps=16, features=4),
+        "nemotron-4-340b": dict(depth=2, f32_depth=1, rows=2, prompt=256,
+                                steps=8),
+        "grok-1-314b": dict(depth=4, f32_depth=1, rows=4, prompt=(64, 256),
+                            steps=8, server=True),
+        "granite-34b": dict(depth=8, f32_depth=1, rows=4, prompt=256,
+                            steps=8)}
+F32_PROMPT = 48            # prompt tokens of the f32 decode ≡ forward
+
+
+def wide_phase(torch, dev, card, name, depth, f32_depth, rows, prompt,
+               steps, server=False, features=0):
+    """One wide config at full width, ``depth`` of its layers: (vlm)
+    features of ``features`` samples of 1024 stub patches and ``prompt``
+    tokens; a prefill of ``rows`` prompts and ``steps`` greedy decode
+    steps (with ``server``, through BatchedServer, each slot its own MoE
+    group), counted: flash on every prefill layer, ``attention_cached``
+    on every decode layer, no plain version, finite logits.  The weights
+    are freed; then decode ≡ full forward on fresh f32 weights at
+    ``f32_depth`` layers within ``DECODE_TOL_F32`` × max |logit|, both
+    faulty-cache controls above it, dropless (a MoE config then reads it
+    at its own capacity too).  Returns ``{name: launch counts}``."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch import serve as SV
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+    from repro_torch.serve.server import BatchedServer, Request, ServerConfig
+
+    base = get_config(name)
+    cfg = dataclasses.replace(base, n_layers=depth)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, g)
+    torch.cuda.synchronize()
+    n_params = n_params_of(params)
+    emit({"phase": "init", "model": cfg.name, "family": cfg.family,
+          "n_layers": depth, "of_layers": base.n_layers,
+          "d_model": cfg.d_model, "head_dim": cfg.head_dim,
+          "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+          "n_params": n_params, "param_bytes": 2 * n_params,
+          "s": time.perf_counter() - t0, "card": card})
+    rng = np.random.default_rng(0)
+    n_img = M.n_img(cfg)
+
+    def img_of(n):              # the stubbed vision frontend's output
+        return torch.randn(n, cfg.n_img_tokens, cfg.img_embed_dim,
+                           generator=g, device=dev)
+
+    def tokens_of_len(*shape):
+        return torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                             size=shape)).to(dev)
+    longest = max(prompt) if isinstance(prompt, tuple) else prompt
+    max_seq = n_img + longest + steps + 1
+    line, prefill_ms, step_ms = {}, [], []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with layers.record_moe() as rec:
+        if features:
+            t0 = time.perf_counter()
+            f = M.features(cfg, params, {"tokens": tokens_of_len(
+                features, prompt), "img": img_of(features)})
+            torch.cuda.synchronize()
+            line["features_s"] = time.perf_counter() - t0
+            if not (f.shape == (features, cfg.d_model)
+                    and torch.isfinite(f).all()):
+                raise AssertionError(f"{name}: features not finite "
+                                     f"({features}, {cfg.d_model})")
+        if server:
+            srv = BatchedServer(cfg, params, ServerConfig(n_slots=rows,
+                                                          max_seq=max_seq))
+            lens = rng.integers(prompt[0], prompt[1] + 1, size=rows)
+            reqs = [Request(rid=i, prompt=tokens_of_len(int(L)),
+                            max_new=steps + 1) for i, L in enumerate(lens)]
+            for r in reqs:
+                t0 = time.perf_counter()
+                srv.submit(r)                # ends on the first token's sync
+                prefill_ms.append(1e3 * (time.perf_counter() - t0))
+            while any(r is not None for r in srv.active):
+                t0 = time.perf_counter()
+                srv.step()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+            n_prefill, last = rows, None
+            line["prompt_lengths"] = [int(L) for L in lens]
+            line["streams"] = [r.out for r in reqs]
+            if any(len(r.out) != steps + 1 for r in reqs):
+                raise AssertionError(f"{name}: a stream stopped short")
+        else:
+            batch = {"tokens": tokens_of_len(rows, prompt)}
+            if n_img:
+                batch["img"] = img_of(rows)
+            prefill = SV.make_prefill_step(cfg, max_seq)
+            decode = SV.make_decode_step(cfg)
+            t0 = time.perf_counter()
+            last, cache = prefill(params, batch)
+            torch.cuda.synchronize()
+            prefill_ms.append(1e3 * (time.perf_counter() - t0))
+            for i in range(steps):
+                t0 = time.perf_counter()
+                tok = torch.argmax(last, -1)[:, None]
+                last, cache = decode(params, cache, tok, n_img + prompt + i)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+            n_prefill = 1
+            del cache
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    plain = sum(v for k, v in counts.items() if k.startswith("plain_on"))
+    expect = {"flash_attention": depth * (n_prefill + bool(features)),
+              "attention_cached": depth * steps}
+    emit({"phase": "wide", "model": cfg.name, "card": card,
+          "n_layers": depth, "of_layers": base.n_layers,
+          "d_model": cfg.d_model, "head_dim": cfg.head_dim,
+          "group": cfg.n_heads // cfg.n_kv_heads, "rows": rows,
+          "prompt": prompt, "n_img": n_img, "decode_steps": steps,
+          "server": server, "prefill_ms": prefill_ms,
+          "decode_step_ms_median": float(np.median(step_ms)),
+          "decode_step_ms": step_ms, **line,
+          "launches": {k: v for k, v in counts.items()
+                       if v and not k.startswith("plain_on")},
+          "expected_launches": expect, "plain_on_cuda": plain,
+          **({"capacity_factor": cfg.capacity_factor,
+              "moe_drop_share": drops_of(rec) / sum(n for n, _ in rec)}
+             if cfg.n_experts else {})})
+    for k, n in expect.items():
+        if counts[k] != n:
+            raise AssertionError(f"{name}: {counts[k]} {k} launches, not "
+                                 f"{n}")
+    if plain:
+        raise AssertionError(f"{name}: plain versions ran on CUDA tensors")
+    if last is not None and not torch.isfinite(last).all():
+        raise AssertionError(f"{name}: decode logits are not finite")
+    del params, last
+    if server:
+        del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- decode ≡ full forward on fresh f32 weights
+    cfg32 = dataclasses.replace(base, n_layers=f32_depth, dtype="float32")
+    g.manual_seed(0)
+    p32 = M.init_params(cfg32, g)
+    p_tok, nxt = tokens_of_len(F32_PROMPT), tokens_of_len(1, 1)
+    img = img_of(1) if n_img else None
+    max32 = n_img + F32_PROMPT + 2
+    with layers.record_moe() as rec:
+        decode_vs_forward(torch, dropless(cfg32), p32, f"{name} (f32, "
+                          f"{f32_depth} layers)", p_tok, nxt, max32, 0,
+                          DECODE_TOL_F32, separates=True, img=img)
+    if drops_of(rec):
+        raise AssertionError(f"{name} (f32, dropless): {drops_of(rec)} "
+                             "assignments dropped")
+    if cfg.n_experts:
+        moe_own_capacity(torch, card, cfg32, p32, f"{name} (f32)", p_tok,
+                         nxt, max32, 0, img=img)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: counts}
 
 
 SERVICE_SEED = 7
@@ -1730,6 +2076,7 @@ def main() -> int:
         print(f"chip_smoke: the repro_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = resolve_device("cuda")
     card = card_line()
     emit({"gpu": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1753,6 +2100,8 @@ def main() -> int:
             counts.update(slice6_paths(torch, dev, card, keep))
             keep.clear()
     counts.update(serving_paths(torch, dev, card))
+    for name, spec in WIDE.items():
+        counts.update(wide_phase(torch, dev, card, name, **spec))
 
     sources = {"estep_fused": ("src/repro_torch/kernels/csrc/gmm_estep.cu",
                                "src/repro/kernels/gmm_estep.py:177"),
@@ -1784,13 +2133,17 @@ def main() -> int:
                                       "library_device_ms", "graph_ms",
                                       "library_graph_ms")}
                 for r in kres[name]["by_shape"]]
-        if name == "flash_attention":          # zamba2-7b's causal D = 112
+        if name == "flash_attention":   # zamba2-7b's D = 112, FLASH_CASES
             entry["by_shape"] = [
-                {"shape": kres[k]["shape"], "causal": kres[k]["causal"],
-                 **{kk: kres[k][kk] for kk in (*keys, "library_device_ms")}}
-                for k in ("flash_attention", "flash_attention_d112")]
+                {"case": k, "shape": kres[k]["shape"],
+                 "causal": kres[k]["causal"],
+                 **{kk: kres[k][kk] for kk in (*keys, "library_device_ms",
+                                               "graph_ms",
+                                               "library_graph_ms")}}
+                for k in kres if k.startswith("flash_attention")]
         kernels.append(entry)
-    emit({"card": card, "kernels": kernels})
+    emit({"card": card, "kernels": kernels,
+          "smoke_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -23,7 +23,7 @@ from repro_torch.kernels import _build
 
 _SOURCE = "attention_cached.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 80, 112, 128)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160, 192)
 ROWS = 16                  # query rows per block
 BK = 64                    # key slots per tile
 BLOCKS_PER_SM = 2          # the grid a split plan aims for, per SM

@@ -1,6 +1,6 @@
 """Check cases of the kernels: the E-step's shapes, those of the
-recurrent kernels ``wkv6`` and ``ssd``, and the cache layouts of cached
-attention.
+recurrent kernels ``wkv6`` and ``ssd``, flash attention at the wide heads,
+and the cache layouts of cached attention.
 
 Shared by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``, which hold the
 CUDA kernels against their plain versions on a card, and (the shapes) by
@@ -54,6 +54,14 @@ WKV6_LONG = (2, 2, 200, 64, 64)
 SSD_LONG = (2, 2, 200, 64, 64, 256)
 
 
+# flash attention at the wide heads and the widest group, tag: (B, H, Hkv,
+# Sq, Sk, D, causal): pixtral-12b's prefill of 1024 image patches and 64
+# tokens (D = 160), nemotron-4-340b's (D = 192), granite-34b's MQA (G = 48)
+FLASH_CASES = {"pixtral_prefill": (2, 32, 8, 1088, 1088, 160, True),
+               "nemotron_prefill": (2, 96, 8, 256, 256, 192, True),
+               "granite34b_prefill": (2, 48, 1, 256, 256, 128, True)}
+
+
 # cached attention, tag: (B, H, Hkv, Sq, Sk, D, window, kind).  "ragged":
 # a dense cache at granite-3-2b's decode, each row at its own length 1 …
 # Sk; "ring": a ring of W = Sk slots with every row past W (wrapped), at
@@ -61,13 +69,21 @@ SSD_LONG = (2, 2, 200, 64, 64, 256)
 # at pos0 > 0 over [old ring ∪ chunk]; "prefill": the ring server's own
 # prefill, a whole prompt from pos0 = 0 into an empty ring (one block a
 # key range: no split); then zamba2-7b's shared block at decode (Hkv =
-# 32, D = 112) and yi-34b's D = 128
+# 32, D = 112) and yi-34b's D = 128; then the decode steps of the wide
+# and grouped configs: granite-moe-3b (G = 3), pixtral-12b (D = 160, after
+# its 1024 image positions), nemotron-4-340b (D = 192, G = 12),
+# granite-34b (MQA: G = 48, three row blocks) and grok-1 (G = 6)
 CACHED_CASES = {"granite_decode": (8, 32, 8, 1, 1024, 64, 0, "ragged"),
                 "ring_wrap": (4, 32, 8, 1, 128, 64, 128, "ring"),
                 "ring_chunk": (2, 32, 8, 64, 128, 64, 128, "chunk"),
                 "ring_prefill": (1, 32, 8, 300, 128, 64, 128, "prefill"),
                 "zamba2_decode": (4, 32, 32, 1, 640, 112, 0, "ragged"),
-                "d128_gqa": (2, 8, 2, 5, 300, 128, 0, "ragged")}
+                "d128_gqa": (2, 8, 2, 5, 300, 128, 0, "ragged"),
+                "granite_moe_decode": (8, 24, 8, 1, 1024, 64, 0, "ragged"),
+                "pixtral_decode": (4, 32, 8, 1, 1152, 160, 0, "ragged"),
+                "nemotron_decode": (4, 96, 8, 1, 512, 192, 0, "ragged"),
+                "granite34b_decode": (4, 48, 1, 1, 512, 128, 0, "ragged"),
+                "grok_decode": (4, 48, 8, 1, 512, 128, 0, "ragged")}
 
 
 def cached_inputs(g: torch.Generator, dev, B, H, Hkv, Sq, Sk, D, window,
@@ -173,3 +189,35 @@ def ssd_steps(x, a_log, B, C, s0):
             + B[:, None, t, :, None] * x[:, :, t, None, :]
         ys.append(torch.einsum("bn,bhnp->bhp", C[:, t], S))
     return torch.stack(ys, dim=2), S
+
+
+# one MoE layer at full width, f32, on the card against the CPU: tag:
+# (config, tokens) (granite-moe-3b's 40 experts, top 8, at one group of
+# 256 tokens: capacity 80)
+MOE_CASES = {"granite_moe": ("granite-moe-3b-a800m", 256)}
+
+
+def moe_inputs(g: torch.Generator, cfg, T: int):
+    """(x (1, T, d), one layer's MoE weights in ``init_moe``'s law), f32
+    on the CPU, drawn from ``g``."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+
+    def dense(*shape):
+        return torch.randn(*shape, generator=g) / shape[-2] ** 0.5
+    w = {"router": dense(d, E), "we_in": dense(E, d, ff),
+         "we_out": dense(E, ff, d)}
+    if cfg.mlp_variant == "swiglu":
+        w["we_gate"] = dense(E, d, ff)
+    return torch.randn(1, T, d, generator=g), w
+
+
+def moe_run(cfg, x, w):
+    """One ``layers.moe`` call: (y, the routes (T, K), dropped
+    assignments)."""
+    from repro_torch.models import layers
+    with layers.record_moe() as rec:
+        y, _ = layers.moe(x, w, cfg)
+    _, _, top_idx = layers.route(x.reshape(-1, x.shape[-1]), w["router"],
+                                 cfg.top_k)
+    return y, top_idx, int(sum(dropped for _, dropped in rec))
+

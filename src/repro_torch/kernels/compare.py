@@ -21,7 +21,8 @@ their errors are reported, not checked.  Each round runs
 every version in turn, then again in the reverse order (A B … B A), each
 in a child process that imports that version's ``repro_torch``, builds
 its kernels into the version's own ``build/kernels/``, holds flash at the
-encoder's and zamba2-7b's shapes, ``ssd`` at the zamba2-7b path's shape,
+encoder's and zamba2-7b's shapes and at ``checks.FLASH_CASES`` (the wide
+heads, MQA), ``ssd`` at the zamba2-7b path's shape,
 ``wkv6`` at the rwkv6-3b path's shape, the two E-steps and
 ``attention_cached`` at the serving paths' shapes
 (``checks.CACHED_CASES``) against their plain versions, and times each
@@ -152,6 +153,24 @@ def child(label: str, only: str = "") -> dict:
                          "library": _times(torch, lambda: sdpa(
                              q, k, v, is_causal=causal))}
             del q, k, v, got, exp
+        # the wide heads and MQA (``checks.FLASH_CASES``; none in a tree
+        # from before them)
+        for tag, case in getattr(checks, "FLASH_CASES", {}).items():
+            B, H, Hkv, Sq, Sk, D, causal = case
+            q = torch.randn(B, H, Sq, D, generator=g, device=dev).to(
+                torch.bfloat16)
+            k, v = (torch.randn(B, Hkv, Sk, D, generator=g, device=dev)
+                    .to(torch.bfloat16) for _ in range(2))
+            kx, vx = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+            got = FA.flash_attention(q, k, v, causal=causal)
+            exp = ref.attention_ref(q, k, v, causal=causal)
+            res[f"flash_attention/{tag}"] = {
+                "max_abs_err": float((got.float() - exp.float()).abs().max()),
+                **_times(torch, lambda: FA.flash_attention(q, k, v,
+                                                           causal=causal)),
+                "library": _times(torch, lambda: sdpa(q, kx, vx,
+                                                      is_causal=causal))}
+            del q, k, v, kx, vx, got, exp
     for grp, fn, plain, inputs, shape, chunk in (
             ("ssd", SSD.ssd, ref.ssd_ref, checks.ssd_inputs, SSD_MAIN,
              SSD_CHUNK),

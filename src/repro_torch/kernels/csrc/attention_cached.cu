@@ -41,9 +41,15 @@
 //   (row, key) pair a thread; each warp owns rows for the online softmax
 //   (warp shuffles); each thread keeps ROWS*D/128 output accumulators.
 //
-// Head dims: any multiple of 8 up to 128 that the wrapper lists (64 for
-// granite-3-2b, 112 for zamba2-7b's shared block, 128 for yi-34b). The
-// wrapper checks 16-byte aligned K/V bases and strides.
+// Head dims: those the wrapper lists (64 for granite-3-2b and
+// granite-moe, 112 for zamba2-7b's shared block, 128 for yi-34b, grok-1
+// and granite-34b, 160 for pixtral-12b, 192 for nemotron-4-340b; 20 and 24
+// accumulators a thread at the last two). The f32 staging at D = 192 is
+// (16 * 192 + 64 * 193 + 64 * 192 + 16 * 64) * 4 bytes = 115 KB, above the
+// 48 KB default: every instance opts in to its size. A group of G query
+// heads makes G * Sq rows, so granite-34b's G = 48 (MQA) at decode runs
+// three row blocks per (b, kv head). The wrapper checks 16-byte aligned
+// K/V bases and strides.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -367,7 +373,8 @@ int launch(int dtype, const Args& a, cudaStream_t s) {
 // (b, h, i, c) of each lies at base + b*st[0] + h*st[1] + i*st[2] + c, the
 // strides (in elements) given for q, k, v, o in that order in st[12].
 // q_pos (B, Sq) and kv_pos (B, Sk) are contiguous int32. dtype 0 is f32,
-// 1 is bf16; D is one of 16, 32, 64, 80, 112, 128; H % Hkv == 0. The keys
+// 1 is bf16; D is one of 16, 32, 64, 80, 112, 128, 160, 192;
+// H % Hkv == 0. The keys
 // split into n_split ranges of keys_per_split slots (a multiple of 64);
 // with n_split > 1, part_acc holds n_split * B*H*Sq * D floats and part_ml
 // n_split * B*H*Sq * 2, and a second kernel merges them into o.
@@ -392,6 +399,8 @@ extern "C" int attention_cached_launch(
     case 80: return launch<80>(dtype, a, s);
     case 112: return launch<112>(dtype, a, s);
     case 128: return launch<128>(dtype, a, s);
+    case 160: return launch<160>(dtype, a, s);
+    case 192: return launch<192>(dtype, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

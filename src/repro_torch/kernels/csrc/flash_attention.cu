@@ -58,7 +58,14 @@
 //   tile; no main path runs it.
 //
 // Head dims: 16, 32, 64, 80 (hubert-xlarge), 112 (zamba2-7b's shared causal
-// block: seven k-steps of 16 and fourteen n-tiles of 8) and 128.
+// block: seven k-steps of 16 and fourteen n-tiles of 8), 128, 160
+// (pixtral-12b) and 192 (nemotron-4-340b). At 160 and 192 a warp holds
+// D / 2 = 80 and 96 f32 output accumulators a thread beside the 32 scores,
+// which does not fit the 168 registers of three blocks an SM: those two
+// instances take `min_blocks` = 1 (up to 255 registers). Their shared
+// tiles, (D + 8) * (64 + 2 * 2 * 64) * 2 bytes, are 107.5 KB and 125 KB:
+// two blocks an SM at 160, one at 192. A row of 20 or 24 16-byte chunks
+// is copied by 32 lanes, 12 or 8 of them idle.
 //
 // Layout: q, k, v and o are (B, heads, S, D) views with any strides whose
 // last dimension is contiguous, so the encoder passes (B, S, H, D) tensors
@@ -253,7 +260,8 @@ __device__ __forceinline__ bool tile_needs_mask(int tile, int i0, int i1,
 template <int D>
 struct TileCopy {
   static constexpr int CH = D / 8;
-  static constexpr int LPR = CH <= 2 ? 2 : CH <= 4 ? 4 : CH <= 8 ? 8 : 16;
+  static constexpr int LPR =
+      CH <= 2 ? 2 : CH <= 4 ? 4 : CH <= 8 ? 8 : CH <= 16 ? 16 : 32;
   static constexpr int RPP = MMA_THREADS / LPR;   // rows per pass
   int c, r0;
   bool active;
@@ -271,8 +279,13 @@ struct TileCopy {
 // of K and of V, each [BKV][D + 8]; step j of the block's key tiles uses
 // stage j % NST, and its copies are in flight while step j - 1 is
 // multiplied.
+// blocks an SM that the register budget is set for: three (168 registers)
+// up to D = 128; one (255) for the wide heads, whose accumulators alone
+// take D / 2 registers
+constexpr int min_blocks(int D) { return D <= 128 ? 3 : 1; }
+
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS, 3)
+__global__ void __launch_bounds__(MMA_THREADS, min_blocks(D))
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
@@ -565,7 +578,8 @@ int launch(int dtype, const Args& a, cudaStream_t s) {
 // q (B, H, Sq, D), k and v (B, Hkv, Sk, D), o (B, H, Sq, D): element
 // (b, h, i, c) of each lies at base + b*st[0] + h*st[1] + i*st[2] + c, the
 // strides (in elements) given for q, k, v, o in that order in st[12].
-// dtype 0 is f32, 1 is bf16. D is one of 16, 32, 64, 80, 112, 128;
+// dtype 0 is f32, 1 is bf16. D is one of 16, 32, 64, 80, 112, 128, 160,
+// 192;
 // H % Hkv == 0.
 // Returns cudaGetLastError() (cudaErrorInvalidValue for another D or dtype).
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -587,6 +601,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 80: return launch<80>(dtype, a, s);
     case 112: return launch<112>(dtype, a, s);
     case 128: return launch<128>(dtype, a, s);
+    case 160: return launch<160>(dtype, a, s);
+    case 192: return launch<192>(dtype, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

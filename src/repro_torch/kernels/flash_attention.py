@@ -20,7 +20,7 @@ from repro_torch.kernels import _build
 
 _SOURCE = "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 80, 112, 128)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160, 192)
 BQ = BKV = 64                   # queries per block, keys per tile
 WARP_ROWS = 16                  # queries per warp of the bf16 kernel
 

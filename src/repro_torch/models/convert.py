@@ -6,7 +6,8 @@ pytree with every leaf as a numpy array (layer stacks ``(L, …)``,
 parameter dict, so both packages compute the same features from the same
 weights.  Every leaf takes ``cfg.dtype`` except those the reference holds
 in f32 whatever the config says (RWKV6's ``w0`` and ``u``, Mamba2's
-``A_log``, ``dt_bias`` and ``D``): casting them would change the result.
+``A_log``, ``dt_bias`` and ``D``, the MoE ``router``): casting them would
+change the result.
 The leaves land on ``cuda`` unless the caller passes ``device="cpu"``
 (:func:`repro_torch.resolve_device`).
 """
@@ -20,15 +21,14 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import mamba2, rwkv
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import _check_family, _dtype
+from repro_torch.models.model import _dtype
 
-F32_LEAVES = frozenset(rwkv.F32_LEAVES + mamba2.F32_LEAVES)
+F32_LEAVES = frozenset(rwkv.F32_LEAVES + mamba2.F32_LEAVES + ("router",))
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
                       device: Optional[Union[str, torch.device]] = None
                       ) -> Dict[str, Any]:
-    _check_family(cfg)
     device = resolve_device(device)
     dt = _dtype(cfg)
 

@@ -18,9 +18,10 @@ every layer's cache).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,7 +39,7 @@ def dense_init(shape, dtype, generator: torch.Generator, device,
     scale = (1.0 / math.sqrt(fan_in)) if scale is None else scale
     z = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
-    return (z * scale).to(dtype)
+    return z.mul_(scale).to(dtype)
 
 
 def dense_stack(n_layers: int, shape, dtype, generator: torch.Generator,
@@ -252,13 +253,140 @@ def attention(x: torch.Tensor, w, cfg: ModelConfig, *,
 
 
 def mlp(x: torch.Tensor, w, cfg: ModelConfig) -> torch.Tensor:
-    """The encoder's GELU MLP and the dense and shared blocks' SwiGLU MLP.
-    ``jax.nn.gelu`` defaults to the tanh approximation, so this does too."""
-    if cfg.mlp_variant not in ("swiglu", "gelu"):
-        raise NotImplementedError(
-            f"mlp_variant={cfg.mlp_variant!r} is not ported yet (ROADMAP "
-            "item 11: moe, vlm and relu2)")
+    """The dense MLP: SwiGLU (three matrices), squared ReLU (``relu2``, two)
+    or GELU (two).  ``jax.nn.gelu`` defaults to the tanh approximation, so
+    this does too."""
     h = x @ w["w_in"]
     if cfg.mlp_variant == "swiglu":
-        return (F.silu(x @ w["w_gate"]) * h) @ w["w_out"]
-    return F.gelu(h, approximate="tanh") @ w["w_out"]
+        h = F.silu(x @ w["w_gate"]) * h
+    else:
+        h = _activation(h, cfg.mlp_variant)
+    return h @ w["w_out"]
+
+
+def _activation(h: torch.Tensor, variant: str) -> torch.Tensor:
+    if variant == "relu2":
+        return torch.relu(h).square()
+    if variant == "gelu":
+        return F.gelu(h, approximate="tanh")
+    raise ValueError(variant)
+
+
+# While ``record_moe`` is active, a list: each ``moe`` call appends its
+# (assignments, dropped assignments), the second a device tensor (no sync).
+_MOE_RECORD: Optional[List[Tuple[int, torch.Tensor]]] = None
+
+
+@contextlib.contextmanager
+def record_moe():
+    """Collect the (token, expert) assignments and the drops of every
+    ``moe`` call inside the block: yields the list they are appended to."""
+    global _MOE_RECORD
+    prev, _MOE_RECORD = _MOE_RECORD, []
+    try:
+        yield _MOE_RECORD
+    finally:
+        _MOE_RECORD = prev
+
+
+def init_moe(cfg: ModelConfig, n_layers: int, dt,
+             generator: torch.Generator, dev) -> Dict[str, torch.Tensor]:
+    """Stacked (L, …) expert weights; the router stays f32 whatever the
+    model's dtype (``repro/models/layers.py::init_moe``)."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    w = {"router": dense_stack(n_layers, (d, E), torch.float32, generator,
+                               dev),
+         "we_in": dense_stack(n_layers, (E, d, ff), dt, generator, dev),
+         "we_out": dense_stack(n_layers, (E, ff, d), dt, generator, dev)}
+    if cfg.mlp_variant == "swiglu":
+        w["we_gate"] = dense_stack(n_layers, (E, d, ff), dt, generator, dev)
+    return w
+
+
+def route(xt: torch.Tensor, router: torch.Tensor, K: int):
+    """Router probabilities (T, E) in f32 and each token's top K: weights
+    renormalised to sum 1 and expert ids (T, K), in descending order with
+    ties to the lower expert (``lax.top_k``'s order: a stable sort)."""
+    probs = torch.softmax(xt.float() @ router.float(), dim=-1)
+    top_w, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_idx = top_w[:, :K], top_idx[:, :K]
+    return probs, top_w / top_w.sum(-1, keepdim=True), top_idx
+
+
+def moe(x: torch.Tensor, w, cfg: ModelConfig, group_size: int = 1024,
+        per_row: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mixture of experts with per-group capacity (Switch / Mesh-TF), the
+    reference's ``moe``: x (B, S, d) → (y (B, S, d), aux scalar f32).
+
+    * Routing in f32 (``route``): softmax of ``x @ router``, the top K of
+      each token in descending order with ties to the lower expert,
+      renormalised.
+    * aux = E · Σ_e frac_tokens_e · frac_probs_e · router_aux_coef over
+      all B·S tokens.
+    * Groups of g = min(group_size, span) consecutive tokens (g = span
+      when it does not divide span), span the B·S tokens, or each row's
+      S with ``per_row`` (the server's decode: the reference ``vmap``s a
+      one-row decode over its slots, so each slot is its own group).
+      Capacity cap = max(K, ⌈g·K/E·capacity_factor⌉), the reference's
+      float expression; an assignment's slot is the number of earlier
+      assignments of its group to the same expert, token-major and
+      k-minor, and it is kept when that is < cap.
+    * Tokens are gathered into (E, n·cap, d) slots by index (empty slots
+      zero, as the reference's one-hot product leaves them), each expert
+      runs its MLP over all of its slots, and the weighted outputs are
+      summed back per token in f32, k by k.  The reference's one-hot
+      einsums sum one nonzero term per slot, so this is its value.
+    """
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    xt = x.reshape(T, d)
+    span = S if per_row else T
+    g = min(group_size, span)
+    if span % g:
+        g = span
+    n = T // g
+    cap = max(K, int(math.ceil(g * K / E * cfg.capacity_factor)))
+
+    probs, top_w, top_idx = route(xt, w["router"], K)
+
+    counts = torch.zeros(E, dtype=torch.float32, device=x.device)
+    counts.scatter_add_(0, top_idx.reshape(-1),
+                        torch.ones(T * K, device=x.device))
+    frac_tokens = counts / T / K
+    aux = E * (frac_tokens * probs.mean(0)).sum() * cfg.router_aux_coef
+
+    # slot of each assignment in its group's expert: the exclusive count
+    # of the group's earlier assignments to that expert
+    flat = top_idx.reshape(n, g * K)
+    onehot = torch.zeros((n, g * K, E), dtype=torch.int32, device=x.device)
+    onehot.scatter_(2, flat[..., None], 1)
+    pos = (onehot.cumsum(1, dtype=torch.int32) - onehot).gather(
+        2, flat[..., None])[..., 0]                          # (n, g·K)
+    keep = pos < cap
+    group = torch.arange(n, device=x.device)[:, None]
+    trash = E * n * cap                  # the one slot dropped ones go to
+    slot = torch.where(keep, (flat * n + group) * cap + pos, trash)
+    slot = slot.reshape(T, K)
+    if _MOE_RECORD is not None:
+        _MOE_RECORD.append((T * K, (~keep).sum()))
+
+    # gather: every kept slot is written once; the trash row is dropped
+    xe = x.new_zeros((trash + 1, d))
+    xe[slot] = xt[:, None].expand(T, K, d)
+    xe = xe[:trash].view(E, n * cap, d)
+    h = torch.bmm(xe, w["we_in"])
+    if cfg.mlp_variant == "swiglu":
+        h = F.silu(torch.bmm(xe, w["we_gate"])) * h
+    else:
+        h = _activation(h, cfg.mlp_variant)
+    ye = torch.bmm(h, w["we_out"]).reshape(trash, d)
+
+    # combine: Σ_k weight · expert output over the kept assignments, f32
+    # (a dropped one reads some slot at weight 0)
+    wk = top_w * keep.reshape(T, K)
+    slot = slot.clamp_max(trash - 1)
+    y = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    for k in range(K):
+        y += ye[slot[:, k]].float() * wk[:, k, None]
+    return y.to(x.dtype).reshape(B, S, d), aux

@@ -5,9 +5,15 @@ cache and the feature map.
 prefill or decode step against ``init_cache``'s state, written in place.
 ``features`` is the FedPFT foundation feature map (the ``f`` in the
 paper's ``w = h ∘ f``): the input embedding, the block stack,
-``rms_norm``, and a mean-pool over positions in f32.  Four families run:
+``rms_norm``, and a mean-pool over positions in f32.  Six families run:
 
-  dense   — token embedding, pre-norm GQA causal attention + SwiGLU blocks
+  dense   — token embedding, pre-norm GQA causal attention + MLP blocks
+            (SwiGLU, squared ReLU or GELU)
+  moe     — the dense blocks with a mixture of experts in place of the MLP
+            (``layers.moe``); ``forward`` returns the summed aux loss
+  vlm     — the dense decoder with a stubbed image prefix: ``batch["img"]``
+            (B, n_img_tokens, img_embed_dim) through ``img_proj``, ahead
+            of the text at positions 0 … n_img − 1
   encoder — frame projection, bidirectional RoPE attention + GELU-MLP blocks
   ssm     — token embedding, an RWKV6 stack (``models/rwkv.py``)
   hybrid  — token embedding, a Mamba2 stack (``models/mamba2.py``) with ONE
@@ -16,8 +22,7 @@ paper's ``w = h ∘ f``): the input embedding, the block stack,
             KV cache per use of the shared block
 
 Parameters are a plain dict in the reference's layout: per-layer weights
-stacked on a leading ``(L, …)`` axis, ``x @ W`` orientation.  The moe and
-vlm families and the relu2 MLP are ROADMAP item 11.
+stacked on a leading ``(L, …)`` axis, ``x @ W`` orientation.
 """
 from __future__ import annotations
 
@@ -30,11 +35,10 @@ from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (Positions, attention, dense_init,
-                                       dense_stack, mlp, rms_norm)
+                                       dense_stack, init_moe, mlp, moe,
+                                       rms_norm)
 
 Params = Dict[str, Any]
-
-FAMILIES = ("dense", "encoder", "ssm", "hybrid")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -42,16 +46,9 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
             "float16": torch.float16}[cfg.dtype]
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP item 11: "
-            f"moe, vlm and relu2); the port runs the {', '.join(FAMILIES)} "
-            "families")
-    if cfg.family != "ssm" and cfg.mlp_variant not in ("swiglu", "gelu"):
-        raise NotImplementedError(
-            f"mlp_variant={cfg.mlp_variant!r} is not ported yet (ROADMAP "
-            "item 11: moe, vlm and relu2)")
+def n_img(cfg: ModelConfig) -> int:
+    """Positions the image prefix takes ahead of the text (vlm only)."""
+    return cfg.n_img_tokens if cfg.family == "vlm" else 0
 
 
 def _init_transformer_stack(cfg: ModelConfig, n_layers: int, dt,
@@ -65,8 +62,11 @@ def _init_transformer_stack(cfg: ModelConfig, n_layers: int, dt,
     w = {"ln1": torch.ones((L, d), dtype=dt, device=dev),
          "ln2": torch.ones((L, d), dtype=dt, device=dev),
          "wq": dense((d, h * dh)), "wk": dense((d, hk * dh)),
-         "wv": dense((d, hk * dh)), "wo": dense((h * dh, d)),
-         "w_in": dense((d, ff)), "w_out": dense((ff, d))}
+         "wv": dense((d, hk * dh)), "wo": dense((h * dh, d))}
+    if cfg.n_experts:
+        w.update(init_moe(cfg, L, dt, generator, dev))
+        return w
+    w.update(w_in=dense((d, ff)), w_out=dense((ff, d)))
     if cfg.mlp_variant == "swiglu":
         w["w_gate"] = dense((d, ff))
     return w
@@ -83,7 +83,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights from ``generator``, the law of the reference's
     ``init_params`` (N(0, 1)/√fan_in, norms at one).  Every stack is
     drawn layer by layer on the device (``dense_stack``)."""
-    _check_family(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
     d = cfg.d_model
@@ -97,7 +96,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     else:
         p["embed"] = dense_init((cfg.vocab_size, d), dt, generator, dev,
                                 scale=0.02)
-    if cfg.family == "dense":
+    if cfg.family == "vlm":
+        p["img_proj"] = dense_init((cfg.img_embed_dim, d), dt, generator,
+                                   dev)
+    if cfg.family in ("dense", "moe", "vlm"):
         p["blocks"] = _init_transformer_stack(cfg, cfg.n_layers, dt,
                                               generator, dev)
     elif cfg.family == "ssm":
@@ -128,9 +130,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, window: int = 0,
                *, device: Optional[Union[str, torch.device]] = None) -> Any:
     """Decode-time state sized for ``max_seq`` context: the RWKV6 state
     (ssm), the Mamba2 state plus one KV cache per use of the shared block
-    (hybrid), or one KV cache per layer (dense).  On ``cuda`` unless
-    ``device="cpu"``."""
-    _check_family(cfg)
+    (hybrid), or one KV cache per layer (dense, moe, vlm).  On ``cuda``
+    unless ``device="cpu"``."""
     dev = resolve_device(device)
     if cfg.family == "ssm":
         return rwkv_mod.init_rwkv_state(cfg, batch, dev)
@@ -149,7 +150,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, window: int = 0,
 def _embed_inputs(cfg: ModelConfig, params: Params, batch):
     """(x (B, S, d), positions (S,)): frames (B, S, F) through
     ``frame_proj`` for the encoder, token ids (B, S) through ``embed``
-    otherwise."""
+    otherwise, after the vlm's image prefix when ``batch`` has ``img``."""
     if cfg.family == "encoder":
         x = batch["frames"].to(_dtype(cfg)) @ params["frame_proj"]
         if "mask" in batch:
@@ -157,14 +158,25 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch):
                             params["mask_emb"].to(x.dtype), x)
     else:
         x = params["embed"][batch["tokens"].long()]
+        if cfg.family == "vlm" and "img" in batch:
+            img = batch["img"].to(_dtype(cfg)) @ params["img_proj"]
+            x = torch.cat([img, x], dim=1)
     return x, torch.arange(x.shape[1], device=x.device)
 
 
 def _transformer_block(cfg: ModelConfig, x, w, *, positions,
                        window: int = 0, layer_cache=None):
+    """One pre-norm block: (x, its MoE aux loss; 0 without experts).
+    Positions that are each row's own (the server's decode) make each row
+    its own MoE group, as the reference's ``vmap`` over slots does."""
     x = x + attention(rms_norm(x, w["ln1"]), w, cfg, positions=positions,
                       window=window, layer_cache=layer_cache)
-    return x + mlp(rms_norm(x, w["ln2"]), w, cfg)
+    xn = rms_norm(x, w["ln2"])
+    if cfg.n_experts:
+        per_row = isinstance(positions, Positions) and positions.start is None
+        y, aux = moe(xn, w, cfg, per_row=per_row)
+        return x + y, aux
+    return x + mlp(xn, w, cfg), 0.0
 
 
 def _layer(blocks: Params, layer: int) -> Params:
@@ -173,14 +185,16 @@ def _layer(blocks: Params, layer: int) -> Params:
 
 def _run_transformer(cfg: ModelConfig, x, blocks, cache=None, *, positions,
                      window: int = 0):
-    """The transformer stack; layer l attends with ``cache``'s slice l
-    when a cache is given."""
+    """The transformer stack: (x, the summed MoE aux loss).  Layer l
+    attends with ``cache``'s slice l when a cache is given."""
+    aux = 0.0
     for layer in range(cfg.n_layers):
-        x = _transformer_block(
+        x, a = _transformer_block(
             cfg, x, _layer(blocks, layer), positions=positions,
             window=window,
             layer_cache=None if cache is None else _layer(cache, layer))
-    return x
+        aux = aux + a
+    return x, aux
 
 
 def _store(state, layer: int, new) -> None:
@@ -230,9 +244,9 @@ def _run_hybrid(cfg: ModelConfig, x, params, cache=None, *, positions,
         if (layer + 1) % A == 0:
             kv = (_layer(cache["shared_kv"], layer // A) if use_cache
                   else None)
-            x = _transformer_block(cfg, x, params["shared_attn"],
-                                   positions=positions, window=window,
-                                   layer_cache=kv)
+            x, _ = _transformer_block(cfg, x, params["shared_attn"],
+                                      positions=positions, window=window,
+                                      layer_cache=kv)
     return x
 
 
@@ -248,9 +262,10 @@ def forward(cfg: ModelConfig, params: Params, batch, *, cache: Any = None,
     ``init_cache``) in place and returns it.  The ssm and hybrid stacks run from ``cache``'s
     recurrent state (zeros without one) and write their new state into
     it.  Logits are the ``cfg.dtype`` product cast to f32, as the
-    reference computes them, then soft-capped when the config says so.
+    reference computes them, then soft-capped when the config says so;
+    aux is the MoE load-balancing loss summed over the layers (0 without
+    experts).
     """
-    _check_family(cfg)
     x, _ = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     P = Positions.of(positions, B, S, x.device)
@@ -268,9 +283,10 @@ def forward(cfg: ModelConfig, params: Params, batch, *, cache: Any = None,
         x = _run_hybrid(cfg, x, params, cache, positions=P, window=window,
                         use_cache=use_cache)
     else:
-        x = _run_transformer(cfg, x, params["blocks"],
-                             cache if use_cache else None, positions=P,
-                             window=window)
+        x, moe_aux = _run_transformer(cfg, x, params["blocks"],
+                                      cache if use_cache else None,
+                                      positions=P, window=window)
+        aux = aux + moe_aux
     x = rms_norm(x, params["final_norm"])
     logits = (x @ params["lm_head"]).float()
     if cfg.logit_softcap:
@@ -281,14 +297,14 @@ def forward(cfg: ModelConfig, params: Params, batch, *, cache: Any = None,
 
 def final_hidden(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
     """Post-norm final hidden states (B, S, d)."""
-    _check_family(cfg)
     x, positions = _embed_inputs(cfg, params, batch)
     if cfg.family == "ssm":
         x = _run_rwkv(cfg, x, params["blocks"])
     elif cfg.family == "hybrid":
         x = _run_hybrid(cfg, x, params, positions=positions)
     else:
-        x = _run_transformer(cfg, x, params["blocks"], positions=positions)
+        x, _ = _run_transformer(cfg, x, params["blocks"],
+                                positions=positions)
     return rms_norm(x, params["final_norm"])
 
 
@@ -298,9 +314,11 @@ def features(cfg: ModelConfig, params: Params, batch,
              ) -> torch.Tensor:
     """Mean-pooled final hidden state in f32: (B, d) features.
 
-    ``batch`` holds ``frames`` (encoder) or ``tokens`` (dense, ssm,
-    hybrid).  Runs on ``cuda`` unless ``device="cpu"``; the batch is
-    moved there and the parameters must already live there.
+    ``batch`` holds ``frames`` (encoder) or ``tokens`` (the others), and
+    ``img`` for a vlm's image prefix, whose positions are pooled with the
+    text's as in the reference.  Runs on ``cuda`` unless
+    ``device="cpu"``; the batch is moved there and the parameters must
+    already live there.
     """
     dev = resolve_device(device)
     if params["final_norm"].device.type != dev.type:

@@ -36,7 +36,17 @@ def entry_device(params, device, who: str) -> torch.device:
 def _prefill(cfg: ModelConfig, max_seq: int, window: int, params, batch,
              cache):
     """forward over a prompt from position 0 into ``cache`` (a fresh
-    ``init_cache`` when None): (logits (B, S, V), the primed cache)."""
+    ``init_cache`` when None): (logits (B, S, V), the primed cache).  A
+    vlm prompt is its image prefix (``batch["img"]``) and then its text,
+    at positions 0 … n_img + S − 1."""
+    if cfg.family == "vlm" and "img" not in batch:
+        # the reference puts the text at positions n_img … n_img + S − 1
+        # and fails to broadcast them against S tokens without an image
+        raise ValueError(
+            f"{cfg.name}: a vlm prefill needs batch['img'], its "
+            f"{cfg.n_img_tokens} image-prefix embeddings: the reference "
+            "places the text after them and cannot serve a prompt "
+            "without one")
     if cache is None:
         cache = M.init_cache(cfg, batch["tokens"].shape[0], max_seq, window,
                              device=_device(params))
@@ -109,7 +119,8 @@ def make_bucketed_prefill_step(cfg: ModelConfig, max_seq: int,
 
     ``prefill(params, batch, length, cache=None)``: ``batch["tokens"]``
     is ``(B, S_b)`` padded to a bucket, ``length`` the real prompt length.
-    Returns the logits at the last real token and the primed cache.
+    Returns the logits at the last real token (after a vlm's image
+    prefix) and the primed cache.
     Valid only for a dense (non-ring) attention cache: pads land in cache
     slots ≥ ``length``, which causal masking hides in the prefill and the
     decode's key mask afterwards, each decode step overwriting slot
@@ -118,7 +129,7 @@ def make_bucketed_prefill_step(cfg: ModelConfig, max_seq: int,
     """
     def prefill(params, batch, length: int, cache=None):
         logits, cache = _prefill(cfg, max_seq, window, params, batch, cache)
-        return logits[:, int(length) - 1], cache
+        return logits[:, M.n_img(cfg) + int(length) - 1], cache
 
     return prefill
 
@@ -162,14 +173,15 @@ def greedy_generate(cfg: ModelConfig, params, prompt, n_new: int,
     result; the port stops at the last token, so a prompt of S tokens
     needs ``max_seq ≥ S + n_new − 1``.  ``with_gaps`` also returns each
     step's top-2 logit gap (B, n_new): where it is tiny, rounding may
-    pick the other token.
+    pick the other token.  A vlm raises ``ValueError``: the prompt has no
+    image, and the reference cannot generate without one either.
     """
     dev = entry_device(params, device, "greedy_generate")
     prefill = make_prefill_step(cfg, max_seq, window)
     decode = make_decode_step(cfg, window)
     prompt = torch.as_tensor(prompt).to(dev)
     logits, cache = prefill(params, {"tokens": prompt})
-    S = prompt.shape[1]
+    S = prompt.shape[1] + M.n_img(cfg)
     toks, gaps = [], []
     for i in range(n_new):
         top2 = torch.topk(logits, 2, dim=-1).values

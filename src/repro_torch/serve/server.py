@@ -5,7 +5,10 @@ Admission prefills a prompt straight into a free slot's rows of the pool's
 cache; every ``step()`` advances ALL slots with ONE decode whose batch axis
 is the slot axis, each row at its own absolute position (the reference
 ``vmap``s a one-row decode over the slots).  Greedy sampling; slots free
-on EOS or at the sequence cap.
+on EOS or at the sequence cap.  A mixture-of-experts decode routes each
+slot as its own group, as the reference's one-row decodes do.  A request
+carries no image, so a vlm's ``submit`` raises ``ValueError`` (the
+reference cannot serve one either).
 """
 from __future__ import annotations
 
@@ -123,11 +126,12 @@ class BatchedServer:
         first = int(torch.argmax(logits[0]))
         req.out.append(first)
         self.admitted_order.append(req.rid)
+        n_img = M.n_img(self.cfg)
         if (req.max_new <= 1 or first == self.scfg.eos_id
-                or L >= self.scfg.max_seq):
+                or L + n_img >= self.scfg.max_seq):
             req.done = True           # finished at prefill: slot stays free
             return True
-        self.positions[i] = L
+        self.positions[i] = L + n_img
         self.last_tok[i, 0] = first
         self.active[i] = req
         return True

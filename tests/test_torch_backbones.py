@@ -107,10 +107,11 @@ def test_configs_match_reference():
 
 
 @pytest.mark.parametrize("name", sorted(REDUCED))
-def test_unported_paths_name_their_roadmap_item(name):
+def test_decode_block_runs_and_moe_vlm_relu2_overrides_forward(name):
     """A one-token step with ``use_cache=True`` is the decode step and
-    runs; the moe and vlm families and the relu2 MLP still refuse, naming
-    their ROADMAP item."""
+    runs; the config turned moe (4 experts, top 2), vlm (an image prefix
+    of 4) or relu2 draws its weights and runs ``forward`` to finite
+    logits (the moe with a positive aux loss)."""
     _, tcfg = _cfgs(name)
     g = torch.Generator()
     g.manual_seed(0)
@@ -128,11 +129,19 @@ def test_unported_paths_name_their_roadmap_item(name):
     assert y.shape == x.shape and bool(torch.isfinite(y.float()).all())
     assert {k: v.shape for k, v in new.items()} == \
         {k: v.shape for k, v in state.items()}
-    for over in ({"family": "moe"}, {"family": "vlm"},
+    tokens = torch.randint(0, tcfg.vocab_size, (2, 6), generator=g)
+    for over in ({"family": "moe", "n_experts": 4, "top_k": 2},
+                 {"family": "vlm", "n_img_tokens": 4, "img_embed_dim": 32},
                  {"family": "dense", "mlp_variant": "relu2"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            M.init_params(dataclasses.replace(tcfg, **over), g,
-                          device="cpu")
+        cfg = dataclasses.replace(tcfg, **over)
+        params = M.init_params(cfg, g, device="cpu")
+        batch = {"tokens": tokens}
+        if cfg.family == "vlm":
+            batch["img"] = torch.randn(2, 4, 32, generator=g)
+        logits, aux, _ = M.forward(cfg, params, batch)
+        assert logits.shape == (2, 6 + M.n_img(cfg), cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all()), over
+        assert (float(aux) > 0) == (cfg.family == "moe"), over
 
 
 def backbone_rounds(name, seeds):

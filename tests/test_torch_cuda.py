@@ -151,6 +151,25 @@ def test_flash_attention_tile_skipping(dev, B, H, Hkv, Sq, Sk, D, causal,
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3),
+                                       (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("tag", sorted(checks.FLASH_CASES))
+def test_flash_attention_check_cases(dev, tag, dtype, tol):
+    """The chip smoke's wide-head and MQA shapes
+    (``kernels.checks.FLASH_CASES``): pixtral-12b's D = 160,
+    nemotron-4-340b's D = 192, granite-34b's group of 48."""
+    B, H, Hkv, Sq, Sk, D, causal = checks.FLASH_CASES[tag]
+    g = torch.Generator(device=dev)
+    g.manual_seed(D + H)
+    q, k, v = (torch.randn(B, h, S, D, generator=g, device=dev).to(dtype)
+               for h, S in ((H, Sq), (Hkv, Sk), (Hkv, Sk)))
+    out = FA.flash_attention(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out, ref.attention_ref(q, k, v,
+                                                      causal=causal),
+                               rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("layout", ["base", "row_stride"])
 def test_flash_attention_refuses_misaligned_bf16_views(dev, layout):
     g = torch.Generator(device=dev)
@@ -211,8 +230,8 @@ def _check_cached(dev, kind, dims, window, G, D, dtype, tol, seed):
 
 
 @pytest.mark.parametrize("dtype,tol", CACHED_TOL)
-@pytest.mark.parametrize("D", [64, 112, 128])
-@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("D", [64, 112, 128, 160, 192])
+@pytest.mark.parametrize("G", [1, 4, 48])
 @pytest.mark.parametrize("kind,dims,window", CACHED_GRID)
 def test_attention_cached(dev, kind, dims, window, G, D, dtype, tol):
     """Against ``ref.attention_positions_ref`` (the key ranges split as
@@ -623,7 +642,9 @@ def _to_cpu(tree):
 
 @pytest.mark.parametrize("name,over", [("granite-3-2b", {}),
                                        ("rwkv6-3b", {}),
-                                       ("zamba2-7b", {"n_layers": 5})])
+                                       ("zamba2-7b", {"n_layers": 5}),
+                                       ("nemotron-4-340b", {}),
+                                       ("granite-34b", {})])
 def test_prefill_and_decode_on_card_match_the_cpu_path(dev, name, over):
     """A prefill of ragged length and two decode steps, four rows at their
     own positions, through the kernels on the card against the plain CPU
@@ -686,3 +707,24 @@ def test_batched_server_on_card_equals_sequential(dev):
     for i, p in enumerate(prompts):
         want = S.greedy_generate(cfg, params, p[None], 6, 64)[0].tolist()
         assert out[i] == want
+
+
+@pytest.mark.parametrize("tag", sorted(checks.MOE_CASES))
+def test_moe_layer_on_card_matches_the_cpu(dev, tag):
+    """One MoE layer at full width in f32 (``kernels.checks.MOE_CASES``):
+    the card picks the CPU's routes, in the same order, and drops the
+    same assignments; its output is within 1e-5 × max |y| (the two sum
+    the f32 products in another order)."""
+    name, T = checks.MOE_CASES[tag]
+    cfg = dataclasses.replace(get_config(name), dtype="float32")
+    g = torch.Generator()
+    g.manual_seed(0)
+    x, w = checks.moe_inputs(g, cfg, T)
+    y, routes, drops = checks.moe_run(cfg, x, w)
+    yc, routes_c, drops_c = checks.moe_run(
+        cfg, x.to(dev), {k: v.to(dev) for k, v in w.items()})
+    assert torch.equal(routes_c.cpu(), routes) and drops_c == drops
+    assert drops > 0                 # capacity 1.25 drops at this size
+    err = float((yc.cpu() - y).abs().max())
+    assert err <= 1e-5 * float(y.abs().max()), err
+
