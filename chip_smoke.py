@@ -350,9 +350,10 @@ def kernel_phase(torch, dev, card):
 def flash_cases(torch, dev, g, res):
     """Flash at the wide heads and the widest group
     (``kernels.checks.FLASH_CASES``: pixtral-12b's D = 160 prefill,
-    nemotron-4-340b's D = 192, granite-34b's MQA), bf16 and f32 against
-    the plain version; bf16 timed beside SDPA (its K and V repeated over
-    the group: a yardstick, never the path)."""
+    nemotron-4-340b's D = 192, granite-34b's MQA), bf16 (within
+    ``checks.FLASH_TOL_BF16``) and f32 against the plain version; bf16
+    timed beside SDPA (its K and V repeated over the group: a yardstick,
+    never the path)."""
     from repro_torch.kernels import checks, ref
     from repro_torch.kernels import flash_attention as FA
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -361,7 +362,8 @@ def flash_cases(torch, dev, g, res):
             q = torch.randn(B, H, Sq, D, generator=g, device=dev).to(dt)
             k, v = (torch.randn(B, Hkv, Sk, D, generator=g, device=dev)
                     .to(dt) for _ in range(2))
-            tol = ATTN_TOL_BF16 if dt == torch.bfloat16 else ATTN_TOL_F32
+            tol = (checks.FLASH_TOL_BF16 if dt == torch.bfloat16
+                   else ATTN_TOL_F32)
             err = check_close(torch, "flash_attention",
                               FA.flash_attention(q, k, v, causal=causal),
                               ref.attention_ref(q, k, v, causal=causal), tol,
@@ -733,8 +735,8 @@ def main_path(torch, dev, card, name, keep=None, extra=None):
     torch.cuda.synchronize()
     t_feat = time.perf_counter() - t0
     # (token, expert) assignments dropped by MoE capacity, per batch
-    moe_drops = [sum(int(dr) for _, dr in moe_rec[i:i + cfg.n_layers])
-                 / sum(n for n, _ in moe_rec[i:i + cfg.n_layers])
+    moe_drops = [sum(int(dr) for _, dr, _ in moe_rec[i:i + cfg.n_layers])
+                 / sum(n for n, _, _ in moe_rec[i:i + cfg.n_layers])
                  for i in range(0, len(moe_rec), cfg.n_layers)]
     y_dev, yt_dev = torch.from_numpy(y).to(dev), torch.from_numpy(yt).to(dev)
     clients = [(feats[p], y_dev[p]) for p in D.iid_shards(len(y), 4)]
@@ -821,9 +823,24 @@ def main_path(torch, dev, card, name, keep=None, extra=None):
                 *sess.client_summary(f0, y0, 0, generator=g2, device=dev))),
             ("server_head", lambda: sess.server_aggregate(
                 res.messages, generator=g2, device=dev))]
+    moe = {}
+    if cfg.n_experts:
+        # the binned inputs hold 4 token ids, whose tokens route alike:
+        # the same batch on ids drawn across the vocabulary beside it
+        spread = np.random.default_rng(0).integers(
+            1, cfg.vocab_size, size=inp[:batch].shape)
+        part = f"features_batch_{batch}_vocab_ids"
+        with layers.record_moe() as rec:
+            M.features(cfg, params, {key: spread})
+        # the counted run's first batch is the binned batch profiled
+        for tag, r in ((part, rec), (parts[0][0], moe_rec[:cfg.n_layers])):
+            moe[tag] = {"moe": moe_tally(r), "moe_drop_share_by_layer": [
+                int(d) / n for n, d, _ in r]}
+        parts.append((part, lambda: M.features(cfg, params, {key: spread})))
     for part, fn in parts:
         emit({"phase": "profile", "model": cfg.name, "part": part,
-              "card": card, **device_profile(torch, fn)})
+              "card": card, **moe.get(part, {}),
+              **device_profile(torch, fn)})
 
     # the card's features against the plain CPU path on a small input:
     # the same weights cut to two layers (for the hybrid, two Mamba2
@@ -893,12 +910,12 @@ def host_split(torch, fn) -> dict:
 
 
 def decode_vs_forward(torch, cfg, params, tag, prompt, nxt, max_seq,
-                      window, tol, separates=False, img=None, strict=True):
+                      window, tol, separates=False, img=None):
     """decode ≡ full forward (tests/test_archs.py:90 and :118): prefill
     ``prompt`` (S tokens, after a vlm's image prefix ``img``), decode
     ``nxt`` at position n_img + S, against ``forward`` on the S + 1
     tokens at the last position; raises unless within ``tol`` × max
-    |logit| (``strict=False``: only reads it).  Beside it, the same
+    |logit|.  Beside it, the same
     reading of two controls that hand the decode a faulty cache: "stale",
     the prompt's last token never written (a dense cache's row left zero,
     a ring's slot holding the token W earlier, a recurrent state one
@@ -924,11 +941,8 @@ def decode_vs_forward(torch, cfg, params, tag, prompt, nxt, max_seq,
     shape = dict(prompt=L0, window=window, dtype=cfg.dtype,
                  capacity_factor=cfg.capacity_factor if cfg.n_experts
                  else None)
-    if strict:
-        err = check_logits(torch, f"decode of {tag} ≡ full forward",
-                           decoded(prompt, L0), exp, tol, **shape)
-    else:
-        err = float((decoded(prompt, L0).float() - exp).abs().max())
+    err = check_logits(torch, f"decode of {tag} ≡ full forward",
+                       decoded(prompt, L0), exp, tol, **shape)
     runs = {"stale": (prompt[:-1], L0)}
     if cfg.family != "ssm":
         runs["pos+1"] = (prompt, L0 + 1)
@@ -936,7 +950,7 @@ def decode_vs_forward(torch, cfg, params, tag, prompt, nxt, max_seq,
                 for k, a in runs.items()}
     bound = tol * float(exp.abs().max())
     emit({"phase": "logit_control", "check": f"decode of {tag}",
-          "sound_max_abs_err": err, "bound": bound, "checked": strict,
+          "sound_max_abs_err": err, "bound": bound,
           "controls_max_abs_err": controls, **shape})
     if separates and not min(controls.values()) > bound:
         raise AssertionError(f"decode of {tag} ({cfg.dtype}): a faulty "
@@ -956,7 +970,35 @@ def dropless(cfg):
 
 def drops_of(rec) -> int:
     """Assignments dropped over a ``layers.record_moe`` record."""
-    return int(sum(int(d) for _, d in rec))
+    return int(sum(int(d) for _, d, _ in rec))
+
+
+def moe_tally(rec) -> dict:
+    """A ``layers.record_moe`` record summed, the pooled groups
+    (prefills, forwards, feature batches) apart from the per-row ones
+    (the server's decode steps, each slot its own group): calls,
+    (token, expert) assignments and drops of each."""
+    t = {f"{k}_{f}": 0 for k in ("pooled", "per_row")
+         for f in ("calls", "assignments", "dropped")}
+    for n, d, per_row in rec:
+        k = "per_row" if per_row else "pooled"
+        t[f"{k}_calls"] += 1
+        t[f"{k}_assignments"] += n
+        t[f"{k}_dropped"] += int(d)
+    return t
+
+
+def check_decode_groups(cfg, tag, tally, decode_steps):
+    """The server's decode ran per-row MoE groups, as the reference's
+    ``vmap``ped one-row decode: one per-row call a layer and step, none
+    dropping at the config's own capacity (a group of one token has
+    cap = K; a group pooled over the slots could drop)."""
+    want = cfg.n_layers * decode_steps
+    if tally["per_row_calls"] != want or tally["per_row_dropped"]:
+        raise AssertionError(
+            f"{tag}: {tally['per_row_calls']} per-row MoE calls in the "
+            f"decode (want {want}), {tally['per_row_dropped']} "
+            "assignments dropped")
 
 
 def streams_vs_greedy(torch, cfg, params, tag, prompts, out, max_new,
@@ -1007,8 +1049,7 @@ def f32_checks(torch, card, cfg, params, tag, prompts, nxt, max_new,
     prompts served over 2 slots (two wait for a freed slot) against
     their own ``greedy_generate`` up to the first near-tie (twice the f32
     decode ≡ forward error).  No plain version may run.  A MoE model runs
-    these dropless (``dropless``; no assignment may drop), then reads
-    decode ≡ forward once more at its own capacity factor."""
+    these dropless (``dropless``; no assignment may drop)."""
     import dataclasses
 
     from repro_torch.kernels import ops
@@ -1047,29 +1088,7 @@ def f32_checks(torch, card, cfg, params, tag, prompts, nxt, max_new,
     if drops_of(rec):
         raise AssertionError(f"{tag} (f32, dropless): {drops_of(rec)} "
                              "assignments dropped")
-    if cfg.n_experts:
-        moe_own_capacity(torch, card, dataclasses.replace(
-            cfg, dtype="float32"), p32, tag, prompts[0], nxt, max_seq,
-            window)
     del p32
-
-
-def moe_own_capacity(torch, card, cfg, params, tag, prompt, nxt, max_seq,
-                     window, img=None):
-    """The f32 decode ≡ forward reading at the config's own capacity
-    factor, not held to the limit: the full forward, the prefill and the
-    decode each group their tokens differently, so their drops differ.
-    One line: the reading and the share of assignments dropped."""
-    from repro_torch.models import layers
-    with layers.record_moe() as rec:
-        err, _ = decode_vs_forward(torch, cfg, params, tag, prompt, nxt,
-                                   max_seq, window, DECODE_TOL_F32,
-                                   img=img, strict=False)
-    emit({"phase": "moe_drops", "model": cfg.name, "run": tag, "card": card,
-          "capacity_factor": cfg.capacity_factor,
-          "decode_vs_forward_max_abs_err": err, "dropped": drops_of(rec),
-          "assignments": sum(n for n, _ in rec),
-          "drop_share": drops_of(rec) / max(1, sum(n for n, _ in rec))})
 
 
 def serve_phase(torch, dev, card, cfg, params, tag, n_slots, max_seq, n_req,
@@ -1080,8 +1099,10 @@ def serve_phase(torch, dev, card, cfg, params, tag, n_slots, max_seq, n_req,
     then the first ``N_SEQUENTIAL`` streams against their own
     ``greedy_generate`` up to the first near-tie, then one decode step
     under the profiler, then ``f32_checks`` on an f32 copy of the weights.
-    A MoE model serves at its own capacity factor and reports the share
-    of assignments dropped; its decode ≡ forward runs dropless, and its
+    A MoE model serves at its own capacity factor and reports the
+    assignments dropped, its prefills apart from its decode steps, which
+    must drop none (``check_decode_groups``); its decode ≡ forward runs
+    dropless, and its
     streams are not held to ``greedy_generate`` here: a bucketed prefill
     groups its padded prompt otherwise than an exact-length one, so their
     drops differ (``f32_checks`` holds them dropless).
@@ -1165,8 +1186,9 @@ def serve_phase(torch, dev, card, cfg, params, tag, n_slots, max_seq, n_req,
                        if v and not k.startswith("plain_on")},
           "plain_on_cuda": plain, "decode_step_profile": prof,
           **({"capacity_factor": cfg.capacity_factor,
-              "moe_drop_share": drops_of(rec) / sum(n for n, _ in rec)}
-             if cfg.n_experts else {})})
+              "moe": moe_tally(rec)} if cfg.n_experts else {})})
+    if cfg.n_experts:
+        check_decode_groups(cfg, tag, moe_tally(rec), len(step_ms))
     want = {"flash_attention": cfg.family != "ssm" and window == 0,
             "attention_cached": cfg.family != "ssm",
             "wkv6": cfg.family == "ssm", "ssd": cfg.family == "hybrid"}
@@ -1241,8 +1263,10 @@ def wide_phase(torch, dev, card, name, depth, f32_depth, rows, prompt,
     on every decode layer, no plain version, finite logits.  The weights
     are freed; then decode ≡ full forward on fresh f32 weights at
     ``f32_depth`` layers within ``DECODE_TOL_F32`` × max |logit|, both
-    faulty-cache controls above it, dropless (a MoE config then reads it
-    at its own capacity too).  Returns ``{name: launch counts}``."""
+    faulty-cache controls above it, dropless.  A MoE config reports the
+    assignments dropped at its own capacity, the server's decode steps
+    apart (``check_decode_groups``: none may drop).  Returns ``{name:
+    launch counts}``."""
     import dataclasses
     import gc
 
@@ -1349,8 +1373,9 @@ def wide_phase(torch, dev, card, name, depth, f32_depth, rows, prompt,
                        if v and not k.startswith("plain_on")},
           "expected_launches": expect, "plain_on_cuda": plain,
           **({"capacity_factor": cfg.capacity_factor,
-              "moe_drop_share": drops_of(rec) / sum(n for n, _ in rec)}
-             if cfg.n_experts else {})})
+              "moe": moe_tally(rec)} if cfg.n_experts else {})})
+    if cfg.n_experts and server:
+        check_decode_groups(cfg, name, moe_tally(rec), len(step_ms))
     for k, n in expect.items():
         if counts[k] != n:
             raise AssertionError(f"{name}: {counts[k]} {k} launches, not "
@@ -1379,9 +1404,6 @@ def wide_phase(torch, dev, card, name, depth, f32_depth, rows, prompt,
     if drops_of(rec):
         raise AssertionError(f"{name} (f32, dropless): {drops_of(rec)} "
                              "assignments dropped")
-    if cfg.n_experts:
-        moe_own_capacity(torch, card, cfg32, p32, f"{name} (f32)", p_tok,
-                         nxt, max32, 0, img=img)
     del p32
     gc.collect()
     torch.cuda.empty_cache()

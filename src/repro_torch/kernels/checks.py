@@ -60,6 +60,10 @@ SSD_LONG = (2, 2, 200, 64, 64, 256)
 FLASH_CASES = {"pixtral_prefill": (2, 32, 8, 1088, 1088, 160, True),
                "nemotron_prefill": (2, 96, 8, 256, 256, 192, True),
                "granite34b_prefill": (2, 48, 1, 256, 256, 128, True)}
+# their bf16 tolerance, |got − exp| ≤ tol·(1 + |exp|): the kernel and the
+# plain version each round an f32 result to bf16, one bf16 step (2^-8
+# relative) apart
+FLASH_TOL_BF16 = 1e-2
 
 
 # cached attention, tag: (B, H, Hkv, Sq, Sk, D, window, kind).  "ragged":
@@ -219,5 +223,5 @@ def moe_run(cfg, x, w):
         y, _ = layers.moe(x, w, cfg)
     _, _, top_idx = layers.route(x.reshape(-1, x.shape[-1]), w["router"],
                                  cfg.top_k)
-    return y, top_idx, int(sum(dropped for _, dropped in rec))
+    return y, top_idx, int(sum(dropped for _, dropped, _ in rec))
 

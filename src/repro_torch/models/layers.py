@@ -273,14 +273,16 @@ def _activation(h: torch.Tensor, variant: str) -> torch.Tensor:
 
 
 # While ``record_moe`` is active, a list: each ``moe`` call appends its
-# (assignments, dropped assignments), the second a device tensor (no sync).
-_MOE_RECORD: Optional[List[Tuple[int, torch.Tensor]]] = None
+# (assignments, dropped assignments, per_row), the second a device tensor
+# (no sync).
+_MOE_RECORD: Optional[List[Tuple[int, torch.Tensor, bool]]] = None
 
 
 @contextlib.contextmanager
 def record_moe():
     """Collect the (token, expert) assignments and the drops of every
-    ``moe`` call inside the block: yields the list they are appended to."""
+    ``moe`` call inside the block, and whether it grouped per row: yields
+    the list they are appended to."""
     global _MOE_RECORD
     prev, _MOE_RECORD = _MOE_RECORD, []
     try:
@@ -369,7 +371,7 @@ def moe(x: torch.Tensor, w, cfg: ModelConfig, group_size: int = 1024,
     slot = torch.where(keep, (flat * n + group) * cap + pos, trash)
     slot = slot.reshape(T, K)
     if _MOE_RECORD is not None:
-        _MOE_RECORD.append((T * K, (~keep).sum()))
+        _MOE_RECORD.append((T * K, (~keep).sum(), per_row))
 
     # gather: every kept slot is written once; the trash row is dropped
     xe = x.new_zeros((trash + 1, d))

@@ -172,9 +172,13 @@ def test_batched_server_streams_match_the_reference():
     want = jsrv.run([JSV.Request(rid=i, prompt=jnp.asarray(p), max_new=6)
                      for i, p in enumerate(prompts)])
     tsrv = SV.BatchedServer(tcfg, tp, SV.ServerConfig(**scfg), device="cpu")
-    got = tsrv.run([SV.Request(rid=i, prompt=p, max_new=6)
-                    for i, p in enumerate(prompts)])
+    with L.record_moe() as rec:
+        got = tsrv.run([SV.Request(rid=i, prompt=p, max_new=6)
+                        for i, p in enumerate(prompts)])
     assert got == {k: [int(t) for t in v] for k, v in want.items()}
+    # the decode steps group per row (cap = K): none of theirs drops
+    decode = [int(d) for _, d, per_row in rec if per_row]
+    assert decode and sum(decode) == 0
     assert tsrv.admitted_order == jsrv.admitted_order
 
 
@@ -218,7 +222,7 @@ def test_padded_moe_feature_batch_moves_a_real_row():
         with L.record_moe() as rec:
             got = tf(tp, torch.from_numpy(tok),
                      torch.from_numpy(length)).numpy()
-        assert sum(int(d) for _, d in rec) > 0
+        assert sum(int(d) for _, d, _ in rec) > 0
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
         rows[tag] = (got, want)
     moved_t = rows["pads"][0][1] - rows["other"][0][1]

@@ -152,7 +152,8 @@ def test_flash_attention_tile_skipping(dev, B, H, Hkv, Sq, Sk, D, causal,
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3),
-                                       (torch.bfloat16, 5e-2)])
+                                       (torch.bfloat16,
+                                        checks.FLASH_TOL_BF16)])
 @pytest.mark.parametrize("tag", sorted(checks.FLASH_CASES))
 def test_flash_attention_check_cases(dev, tag, dtype, tol):
     """The chip smoke's wide-head and MQA shapes

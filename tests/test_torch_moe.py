@@ -72,7 +72,7 @@ def _run(jcfg, tcfg, w, x, group_size=1024):
                                                for k, v in w.items()},
                          tcfg, group_size=group_size)
     return (np.asarray(jy), float(jaux), ty.numpy(), float(taux),
-            sum(int(d) for _, d in rec))
+            sum(int(d) for _, d, _ in rec))
 
 
 def _x(shape, seed=1):
@@ -130,13 +130,14 @@ def test_per_row_groups_equal_the_reference_vmap(name, S):
                       per_row=True)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=TOL,
                                atol=TOL)
+    assert rec and all(per_row for _, _, per_row in rec)
     if S == 1:
-        assert sum(int(d) for _, d in rec) == 0
+        assert sum(int(d) for _, d, _ in rec) == 0
         # the same tokens as one group drop assignments (grok-1) or not
         with L.record_moe() as rec:
             L.moe(torch.from_numpy(x), {k: torch.from_numpy(v)
                                         for k, v in w.items()}, tcfg)
-        pooled = sum(int(d) for _, d in rec)
+        pooled = sum(int(d) for _, d, _ in rec)
         assert (pooled > 0) == (name == "grok-1-314b"), pooled
 
 
