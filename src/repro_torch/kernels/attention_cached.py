@@ -8,6 +8,11 @@ exactly ``ref.attention_positions_ref`` (the reference's XLA
 with no visible key gives 0.  See the note at the top of the ``.cu`` file
 for the design and what bounds it.
 
+``block_rows``, ``split_plan`` and ``tile_class`` state the bf16 kernel's
+arithmetic in Python (its rows per block, its key ranges, and which key
+tiles it skips or copies without a mask test), so the CPU tests can hold
+them against ``ref.positions_mask``.
+
 Takes CUDA tensors only; ``ops`` sends CPU tensors to the plain version.
 ``LAUNCHES`` counts wrapper calls that launched the kernel.
 """
@@ -24,12 +29,18 @@ from repro_torch.kernels import _build
 _SOURCE = "attention_cached.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160, 192)
-ROWS = 16                  # query rows per block
+ROWS = 64                  # query rows of a bf16 block at most (four warps)
+WARP_ROWS = 16             # query rows of a row group (one mma's M)
+SIMT_ROWS = 16             # query rows of an f32 block
 BK = 64                    # key slots per tile
 BLOCKS_PER_SM = 2          # the grid a split plan aims for, per SM
+# the bf16 kernel merges key splits in the last block of each (b, kv head,
+# row block) (True) or in a second launch (False)
+FOLD_MERGE = True
 
 LAUNCHES: Dict[str, int] = {"attention_cached": 0}
 _FN = None
+_COUNTERS: Dict[int, torch.Tensor] = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -37,18 +48,62 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def block_rows(R: int) -> int:
+    """Query rows of a bf16 block when a kv head's group has R = G·Sq
+    rows: 16 (its four warps then split each key tile four ways), 32 (two
+    row groups, two ways) or ``ROWS`` (a row group a warp)."""
+    return 16 if R <= 16 else 32 if R <= 32 else ROWS
+
+
 def split_plan(B: int, H: int, Hkv: int, Sq: int, Sk: int, n_sm: int
                ) -> Tuple[int, int]:
     """``(keys_per_split, n_split)``: the key range of one block and the
     number of ranges.  Splits are added until the grid holds about
-    ``BLOCKS_PER_SM`` blocks on each of the card's ``n_sm`` SMs (a decode
-    step has only B·Hkv row tiles); each range is a whole number of key
-    tiles.  n_split == 1 writes the output straight from the block."""
+    ``BLOCKS_PER_SM`` bf16 blocks on each of the card's ``n_sm`` SMs (a
+    decode step has only B·Hkv row blocks); each range is a whole number
+    of key tiles.  n_split == 1 writes the output straight from the
+    block.  The f32 kernel takes the same ranges."""
+    R = H // Hkv * Sq
     tiles = -(-Sk // BK)
-    blocks = B * Hkv * -(-(H // Hkv) * Sq // ROWS)
+    blocks = B * Hkv * -(-R // block_rows(R))
     want = max(1, min(tiles, -(-BLOCKS_PER_SM * n_sm // blocks)))
     per = -(-tiles // want)
     return per * BK, -(-tiles // per)
+
+
+def tile_class(kv_tile: torch.Tensor, q_lo: int, q_hi: int, causal: bool,
+               window: int) -> str:
+    """``"skip"``, ``"full"`` or ``"masked"``: how the bf16 kernel treats a
+    tile of ``BK`` key slots (positions, < 0 for an empty slot or one past
+    the keys) for rows whose positions span ``[q_lo, q_hi]``.
+
+    From the count of valid slots and the min and max of their positions
+    alone (a wrapped ring's slots are in no order): skip when no valid
+    slot can be visible to any such row, full when every slot is valid
+    and visible to every row (no mask test), masked otherwise.  A block
+    copies the tiles that are not skipped for all of its rows; each warp
+    classifies them again for its own 16.
+    """
+    valid = kv_tile[kv_tile >= 0]
+    if q_lo > q_hi or valid.numel() == 0:
+        return "skip"
+    k_min, k_max = int(valid.min()), int(valid.max())
+    if (causal and k_min > q_hi) or (window > 0 and q_lo - k_max >= window):
+        return "skip"
+    if valid.numel() == BK and (not causal or k_max <= q_lo) \
+            and (window <= 0 or q_hi - k_min < window):
+        return "full"
+    return "masked"
+
+
+def _counters(dev: torch.device, n: int) -> torch.Tensor:
+    """The fold merge's arrival counters on ``dev``, at least ``n``, zero
+    (each kernel leaves the ones it used at zero)."""
+    c = _COUNTERS.get(dev.index)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+        _COUNTERS[dev.index] = c
+    return c
 
 
 def _check_aligned(name: str, t: torch.Tensor) -> None:
@@ -66,7 +121,7 @@ def _launch_fn():
     global _FN
     if _FN is None:
         fn = _build.load(_SOURCE).attention_cached_launch
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
@@ -124,20 +179,23 @@ def attention_cached(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     per, n_split = split_plan(B, H, Hkv, Sq, Sk, _sm_count(
         dev.index if dev.index is not None else torch.cuda.current_device()))
     out = torch.empty((B, Sq, H, D), dtype=dt, device=dev).transpose(1, 2)
+    fold = int(FOLD_MERGE and dt == torch.bfloat16)
+    ptrs = (None, None, None)
     if n_split > 1:
         part_acc = torch.empty((n_split, B * H * Sq, D), dtype=torch.float32,
                                device=dev)
         part_ml = torch.empty((n_split, B * H * Sq, 2), dtype=torch.float32,
                               device=dev)
-        ptrs = (part_acc.data_ptr(), part_ml.data_ptr())
-    else:
-        ptrs = (None, None)
+        R = H // Hkv * Sq
+        counters = _counters(dev, B * Hkv * -(-R // block_rows(R))) \
+            .data_ptr() if fold else None
+        ptrs = (part_acc.data_ptr(), part_ml.data_ptr(), counters)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
     status = _launch_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         kv_pos.data_ptr(), out.data_ptr(), *ptrs, strides, _DTYPES[dt], B,
-        H, Hkv, Sq, Sk, D, int(causal), int(window), per, n_split,
+        H, Hkv, Sq, Sk, D, int(causal), int(window), per, n_split, fold,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "attention_cached_launch")
     LAUNCHES["attention_cached"] += 1

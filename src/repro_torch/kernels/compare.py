@@ -6,6 +6,8 @@
         [--only flash,ssd,wkv6,estep,cached] [--out build/compare.jsonl]
     python3 src/repro_torch/kernels/compare.py --sweep-estep
         [--out build/estep_plans.jsonl]
+    python3 src/repro_torch/kernels/compare.py --sweep-cached
+        [--out build/cached_splits.jsonl]
 
 A ``--tree`` is a checkout of the repository: ``.`` for the working tree,
 or a commit unpacked into a git-ignored directory, as in
@@ -34,6 +36,10 @@ kernel (and SDPA beside flash and ``attention_cached``) two ways:
 - ``device_ms``: 25 calls back to back between two events, the median of
   three such runs, per call: the card's time, the host's launch work
   overlapped with it.
+- ``graph_ms`` (``attention_cached`` and its SDPA): one call captured in
+  a CUDA graph and replayed, the card's time with no host work; for
+  ``attention_cached`` also with the other merge of its key splits
+  (``other_merge_graph_ms``: ``FOLD_MERGE`` flipped).
 
 ``--only`` builds and times the named groups alone (``flash``, ``ssd``,
 ``wkv6``, ``estep``: both E-steps, ``cached``); a tree from before
@@ -41,7 +47,8 @@ kernel (and SDPA beside flash and ``attention_cached``) two ways:
 version and round, then a summary; writes both to ``--out``.
 ``--sweep-estep`` times every launch plan of the E-step kernel at the main
 path's shapes (one CUDA graph replayed: the card's time alone) and says
-where the wrapper's pick ranks.  ``chip_smoke.py`` takes its timers from
+where the wrapper's pick ranks; ``--sweep-cached`` does the same for every
+key split of ``attention_cached`` at its check shapes, with either merge.  ``chip_smoke.py`` takes its timers from
 here.
 """
 from __future__ import annotations
@@ -217,13 +224,23 @@ def child(label: str, only: str = "") -> dict:
             got = CA.attention_cached(q, k, v, qp, kp, window=window)
             exp = ref.attention_positions_ref(q, k, v, qp, kp, window=window)
             kx, vx = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
-            res[f"attention_cached/{tag}"] = {
+
+            def call():
+                return CA.attention_cached(q, k, v, qp, kp, window=window)
+
+            def lib():
+                return sdpa(q, kx, vx, attn_mask=mask[:, None])
+            row = res[f"attention_cached/{tag}"] = {
                 "max_abs_err": float((got.float() - exp.float())[sel].abs()
                                      .max()),
-                **_times(torch, lambda: CA.attention_cached(
-                    q, k, v, qp, kp, window=window)),
-                "library": _times(torch, lambda: sdpa(
-                    q, kx, vx, attn_mask=mask[:, None]))}
+                **_times(torch, call), "graph_ms": graph_ms(torch, call),
+                "library": {**_times(torch, lib),
+                            "graph_ms": graph_ms(torch, lib)}}
+            if hasattr(CA, "FOLD_MERGE"):
+                # the other merge of the key splits
+                CA.FOLD_MERGE = not CA.FOLD_MERGE
+                row["other_merge_graph_ms"] = graph_ms(torch, call)
+                CA.FOLD_MERGE = not CA.FOLD_MERGE
     return res
 
 
@@ -257,6 +274,14 @@ ABLATIONS = {
     # without its sums
     "estep_no_copies": ("gmm_estep.cu", [
         ("      if (ch + NST - 1 < nch) load(ch + NST - 1);\n", "")]),
+    # attention_cached's K/V ring at another depth (right outputs): two
+    # stages at every head dim, or four at D <= 64
+    "cached_nst2": ("attention_cached.cu", [
+        ("int stages(int D) { return D <= 112 ? 3 : 2; }",
+         "int stages(int D) { return 2; }")]),
+    "cached_nst4": ("attention_cached.cu", [
+        ("int stages(int D) { return D <= 112 ? 3 : 2; }",
+         "int stages(int D) { return D <= 64 ? 4 : D <= 112 ? 3 : 2; }")]),
     "estep_no_sums": ("gmm_estep.cu", [
         ("      for (int kk = 0; kk < KT; ++kk) {\n        const float4 iv",
          "      for (int kk = 0; kk < KT * (ch < 0); ++kk) {\n"
@@ -397,6 +422,58 @@ def sweep_estep_plans(out: Path) -> None:
                               "best": best, "picked": mine}), flush=True)
 
 
+def sweep_cached_splits(out: Path) -> None:
+    """Every key split of bf16 ``attention_cached`` at the check shapes
+    (``checks.CACHED_CASES``), with either merge of the splits, timed on
+    the card (``graph_ms``) and checked against the plain version; one
+    JSON line a plan, then per case the best and the one ``split_plan``
+    picks."""
+    import torch
+    from repro_torch.kernels import attention_cached as CA
+    from repro_torch.kernels import checks, ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    pick, fold0 = CA.split_plan, CA.FOLD_MERGE
+    n_sm = CA._sm_count(torch.cuda.current_device())
+    with out.open("w") as f:
+        for tag, case in checks.CACHED_CASES.items():
+            B, H, Hkv, Sq, Sk, D, window, kind = case
+            g.manual_seed(0)
+            q, k, v, qp, kp = checks.cached_inputs(g, dev, *case,
+                                                   dtype=torch.bfloat16)
+            n_keys = kp.shape[1]
+            tiles = -(-n_keys // CA.BK)
+            chosen = pick(B, H, Hkv, Sq, n_keys, n_sm)
+            sel = ref.positions_mask(qp, kp, window=window).any(-1)[
+                :, None, :].expand(q.shape[:3])
+            exp = ref.attention_positions_ref(q, k, v, qp, kp, window=window)
+
+            def call():
+                return CA.attention_cached(q, k, v, qp, kp, window=window)
+            rows = []
+            for per in sorted({-(-tiles // n) for n in range(1, tiles + 1)}):
+                plan = (per * CA.BK, -(-tiles // per))
+                for fold in ((True, False) if plan[1] > 1 else (fold0,)):
+                    CA.split_plan = lambda *a, p=plan: p
+                    CA.FOLD_MERGE = fold
+                    try:
+                        err = float((call().float() - exp.float())[sel]
+                                    .abs().max())
+                        ms = graph_ms(torch, call, 50)
+                    finally:
+                        CA.split_plan, CA.FOLD_MERGE = pick, fold0
+                    rows.append(dict(case=tag, keys_per_split=plan[0],
+                                     n_split=plan[1], fold=fold,
+                                     graph_ms=ms, max_abs_err=err,
+                                     picked=plan == chosen and fold == fold0))
+            rows.sort(key=lambda r: r["graph_ms"])
+            for r in rows:
+                f.write(json.dumps(r) + "\n")
+            print(json.dumps({"case": tag, "best": rows[0], "picked": next(
+                r for r in rows if r["picked"])}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", action="append", default=[])
@@ -404,6 +481,9 @@ def main() -> int:
     ap.add_argument("--ablate", action="append", default=[])
     ap.add_argument("--sweep-estep", action="store_true",
                     help="time every E-step plan at the main path's shapes")
+    ap.add_argument("--sweep-cached", action="store_true",
+                    help="time every key split of attention_cached at its "
+                         "check shapes")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--only", default="",
                     help="comma-separated groups of " + ", ".join(GROUPS))
@@ -413,10 +493,10 @@ def main() -> int:
     if args.child:
         print(json.dumps(child(args.child, args.only)), flush=True)
         return 0
-    if args.sweep_estep:
+    if args.sweep_estep or args.sweep_cached:
         out = Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)
-        sweep_estep_plans(out)
+        (sweep_estep_plans if args.sweep_estep else sweep_cached_splits)(out)
         return 0
     trees = _versions(args)
     order = list(trees)
@@ -448,6 +528,12 @@ def main() -> int:
                                      if r["version"] == name],
                        "device_ms": [r[k]["device_ms"] for r in rows
                                      if r["version"] == name],
+                       **({"graph_ms": [r[k]["graph_ms"] for r in rows
+                                        if r["version"] == name],
+                           "library_graph_ms": [
+                               r[k]["library"]["graph_ms"] for r in rows
+                               if r["version"] == name]}
+                          if "graph_ms" in v else {}),
                        **({"library_device_ms": [
                            r[k]["library"]["device_ms"] for r in rows
                            if r["version"] == name],

@@ -232,12 +232,85 @@ def _check_cached(dev, kind, dims, window, G, D, dtype, tol, seed):
 
 @pytest.mark.parametrize("dtype,tol", CACHED_TOL)
 @pytest.mark.parametrize("D", [64, 112, 128, 160, 192])
-@pytest.mark.parametrize("G", [1, 4, 48])
+@pytest.mark.parametrize("G", [1, 4, 16, 17, 48, 64, 65])
 @pytest.mark.parametrize("kind,dims,window", CACHED_GRID)
 def test_attention_cached(dev, kind, dims, window, G, D, dtype, tol):
     """Against ``ref.attention_positions_ref`` (the key ranges split as
-    ``split_plan`` gives them on this card)."""
+    ``split_plan`` gives them on this card).  At Sq = 1 a kv head's group
+    is G rows: 16 and 17 sit on either side of the bf16 kernel's
+    four-way key slices, 64 and 65 on either side of one block."""
     _check_cached(dev, kind, dims, window, G, D, dtype, tol, D + G)
+
+
+def _mixed_ring(dev, B, G, dtype):
+    """A cache of four 64-slot tiles read by three queries at 1000-1002
+    under window 200, so that each tile takes another class for the bf16
+    kernel: empty (skip), a wrapped run 900-963 (full), a wrapped run
+    964-1027 (masked: some slots past the causal end), 100-163 (skip:
+    behind the window); the rows' order of tiles is rolled by b."""
+    Hkv, Sq, D = 2, 3, 64
+    g = torch.Generator(device=dev)
+    g.manual_seed(B * G)
+    j = torch.arange(64, device=dev)
+    tiles = [torch.full((64,), -1, device=dev), 900 + (j + 17) % 64,
+             964 + (j + 40) % 64, 100 + (j + 5) % 64]
+    kv_pos = torch.stack([torch.cat(tiles[b % 4:] + tiles[:b % 4])
+                          for b in range(B)]).int()
+    q_pos = (1000 + torch.arange(Sq, device=dev)).expand(B, Sq).int()
+    q = torch.randn(B, Sq, G * Hkv, D, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, 256, Hkv, D, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), q_pos, \
+        kv_pos
+
+
+@pytest.mark.parametrize("dtype,tol", CACHED_TOL)
+@pytest.mark.parametrize("G", [4, 20])
+def test_attention_cached_mixed_tiles(dev, G, dtype, tol):
+    """A wrapped ring whose tiles are skipped, full and masked (G = 4: 12
+    rows, one row group; G = 20: 60 rows, four), unsplit and split."""
+    q, k, v, q_pos, kv_pos = _mixed_ring(dev, 4, G, dtype)
+    for tile in range(4):
+        classes = {CA.tile_class(kv_pos[b, 64 * tile:64 * (tile + 1)],
+                                 1000, 1002, True, 200) for b in range(4)}
+        assert len(classes) == 3   # each tile is each class in some row
+    exp = ref.attention_positions_ref(q, k, v, q_pos, kv_pos, window=200)
+    for n_sm in (1, 132):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(CA, "_sm_count", lambda index: n_sm)
+            out = CA.attention_cached(q, k, v, q_pos, kv_pos, window=200)
+        torch.testing.assert_close(out, exp, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("dtype,tol", CACHED_TOL)
+def test_attention_cached_splits_with_rows_that_see_nothing(dev, fold,
+                                                            dtype, tol):
+    """Eight key ranges of 64 over rows of length 1, 100 and 300 and a row
+    with no valid slot: most splits see no key of a row (m = -inf in
+    their partial result), the last row none at all (exactly 0), merged
+    by the last block or by the second launch."""
+    B, G, Hkv, Sk, D = 4, 4, 2, 512, 128
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    length = torch.tensor([1, 100, 300, 0], device=dev)[:, None]
+    j = torch.arange(Sk, device=dev)[None]
+    kv_pos = torch.where(j < length, j, -1).int()
+    q_pos = (length - 1).clamp_min(0).int()
+    q = torch.randn(B, 1, G * Hkv, D, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, Sk, Hkv, D, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(CA, "_sm_count", lambda index: 10_000)
+        mp.setattr(CA, "FOLD_MERGE", fold)
+        assert CA.split_plan(B, G * Hkv, Hkv, 1, Sk, 10_000) == (64, 8)
+        out = CA.attention_cached(q, k, v, q_pos, kv_pos)
+        again = CA.attention_cached(q, k, v, q_pos, kv_pos)
+    exp = ref.attention_positions_ref(q, k, v, q_pos, kv_pos)
+    torch.testing.assert_close(out[:3], exp[:3], rtol=tol, atol=tol)
+    assert float(out[3].abs().max()) == 0.0
+    assert torch.equal(out, again)   # the fold left its counters at zero
 
 
 @pytest.mark.parametrize("dtype,tol", CACHED_TOL)
