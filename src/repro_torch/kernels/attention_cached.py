@@ -31,16 +31,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 112, 128, 160, 192)
 ROWS = 64                  # query rows of a bf16 block at most (four warps)
 WARP_ROWS = 16             # query rows of a row group (one mma's M)
-SIMT_ROWS = 16             # query rows of an f32 block
 BK = 64                    # key slots per tile
-BLOCKS_PER_SM = 2          # the grid a split plan aims for, per SM
-# the bf16 kernel merges key splits in the last block of each (b, kv head,
-# row block) (True) or in a second launch (False)
-FOLD_MERGE = True
+BLOCKS_PER_SM = 1          # the grid a split plan aims for, per SM
+MIN_TILES = 5              # key tiles at least, for the keys to split
 
 LAUNCHES: Dict[str, int] = {"attention_cached": 0}
 _FN = None
-_COUNTERS: Dict[int, torch.Tensor] = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,16 +54,21 @@ def block_rows(R: int) -> int:
 def split_plan(B: int, H: int, Hkv: int, Sq: int, Sk: int, n_sm: int
                ) -> Tuple[int, int]:
     """``(keys_per_split, n_split)``: the key range of one block and the
-    number of ranges.  Splits are added until the grid holds about
-    ``BLOCKS_PER_SM`` bf16 blocks on each of the card's ``n_sm`` SMs (a
-    decode step has only B·Hkv row blocks); each range is a whole number
-    of key tiles.  n_split == 1 writes the output straight from the
-    block.  The f32 kernel takes the same ranges."""
+    number of ranges, each a whole number of key tiles.  Keys of fewer
+    than ``MIN_TILES`` tiles do not split: a block walks its tiles one
+    after another (~0.6 µs a tile at decode), and splits cost a second
+    launch that merges them (~3 µs).  Longer keys split until the grid
+    holds about ``BLOCKS_PER_SM`` bf16 blocks on each of the card's
+    ``n_sm`` SMs (a decode step has only B·Hkv row blocks).  Both numbers
+    come from ``compare.py --sweep-cached``, which times every split at
+    the check shapes (PERF.md §6, PR 19).  n_split == 1 writes the output
+    straight from the block.  The f32 kernel takes the same ranges."""
     R = H // Hkv * Sq
     tiles = -(-Sk // BK)
+    if tiles < MIN_TILES:
+        return tiles * BK, 1
     blocks = B * Hkv * -(-R // block_rows(R))
-    want = max(1, min(tiles, -(-BLOCKS_PER_SM * n_sm // blocks)))
-    per = -(-tiles // want)
+    per = -(-tiles // min(tiles, -(-BLOCKS_PER_SM * n_sm // blocks)))
     return per * BK, -(-tiles // per)
 
 
@@ -96,16 +97,6 @@ def tile_class(kv_tile: torch.Tensor, q_lo: int, q_hi: int, causal: bool,
     return "masked"
 
 
-def _counters(dev: torch.device, n: int) -> torch.Tensor:
-    """The fold merge's arrival counters on ``dev``, at least ``n``, zero
-    (each kernel leaves the ones it used at zero)."""
-    c = _COUNTERS.get(dev.index)
-    if c is None or c.numel() < n:
-        c = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
-        _COUNTERS[dev.index] = c
-    return c
-
-
 def _check_aligned(name: str, t: torch.Tensor) -> None:
     """K and V are read in 16-byte pieces: the base pointer and every
     batch, head and row stride must be a multiple of 16 bytes."""
@@ -121,7 +112,7 @@ def _launch_fn():
     global _FN
     if _FN is None:
         fn = _build.load(_SOURCE).attention_cached_launch
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn
@@ -179,23 +170,19 @@ def attention_cached(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     per, n_split = split_plan(B, H, Hkv, Sq, Sk, _sm_count(
         dev.index if dev.index is not None else torch.cuda.current_device()))
     out = torch.empty((B, Sq, H, D), dtype=dt, device=dev).transpose(1, 2)
-    fold = int(FOLD_MERGE and dt == torch.bfloat16)
-    ptrs = (None, None, None)
+    ptrs = (None, None)
     if n_split > 1:
         part_acc = torch.empty((n_split, B * H * Sq, D), dtype=torch.float32,
                                device=dev)
         part_ml = torch.empty((n_split, B * H * Sq, 2), dtype=torch.float32,
                               device=dev)
-        R = H // Hkv * Sq
-        counters = _counters(dev, B * Hkv * -(-R // block_rows(R))) \
-            .data_ptr() if fold else None
-        ptrs = (part_acc.data_ptr(), part_ml.data_ptr(), counters)
+        ptrs = (part_acc.data_ptr(), part_ml.data_ptr())
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
     status = _launch_fn()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         kv_pos.data_ptr(), out.data_ptr(), *ptrs, strides, _DTYPES[dt], B,
-        H, Hkv, Sq, Sk, D, int(causal), int(window), per, n_split, fold,
+        H, Hkv, Sq, Sk, D, int(causal), int(window), per, n_split,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "attention_cached_launch")
     LAUNCHES["attention_cached"] += 1

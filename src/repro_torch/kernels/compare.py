@@ -37,9 +37,7 @@ kernel (and SDPA beside flash and ``attention_cached``) two ways:
   three such runs, per call: the card's time, the host's launch work
   overlapped with it.
 - ``graph_ms`` (``attention_cached`` and its SDPA): one call captured in
-  a CUDA graph and replayed, the card's time with no host work; for
-  ``attention_cached`` also with the other merge of its key splits
-  (``other_merge_graph_ms``: ``FOLD_MERGE`` flipped).
+  a CUDA graph and replayed, the card's time with no host work.
 
 ``--only`` builds and times the named groups alone (``flash``, ``ssd``,
 ``wkv6``, ``estep``: both E-steps, ``cached``); a tree from before
@@ -48,7 +46,7 @@ version and round, then a summary; writes both to ``--out``.
 ``--sweep-estep`` times every launch plan of the E-step kernel at the main
 path's shapes (one CUDA graph replayed: the card's time alone) and says
 where the wrapper's pick ranks; ``--sweep-cached`` does the same for every
-key split of ``attention_cached`` at its check shapes, with either merge.  ``chip_smoke.py`` takes its timers from
+key split of ``attention_cached`` at its check shapes.  ``chip_smoke.py`` takes its timers from
 here.
 """
 from __future__ import annotations
@@ -214,6 +212,9 @@ def child(label: str, only: str = "") -> dict:
     if "cached" in groups:
         from repro_torch.kernels import attention_cached as CA
         g.manual_seed(0)
+        # the floor of graph_ms: one replay of a graph of one tiny kernel
+        tiny = torch.zeros(1, device=dev)
+        res["graph_floor_ms"] = graph_ms(torch, tiny.zero_)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         for tag, case in checks.CACHED_CASES.items():
             B, H, Hkv, Sq, Sk, D, window, kind = case
@@ -230,17 +231,12 @@ def child(label: str, only: str = "") -> dict:
 
             def lib():
                 return sdpa(q, kx, vx, attn_mask=mask[:, None])
-            row = res[f"attention_cached/{tag}"] = {
+            res[f"attention_cached/{tag}"] = {
                 "max_abs_err": float((got.float() - exp.float())[sel].abs()
                                      .max()),
                 **_times(torch, call), "graph_ms": graph_ms(torch, call),
                 "library": {**_times(torch, lib),
                             "graph_ms": graph_ms(torch, lib)}}
-            if hasattr(CA, "FOLD_MERGE"):
-                # the other merge of the key splits
-                CA.FOLD_MERGE = not CA.FOLD_MERGE
-                row["other_merge_graph_ms"] = graph_ms(torch, call)
-                CA.FOLD_MERGE = not CA.FOLD_MERGE
     return res
 
 
@@ -274,14 +270,6 @@ ABLATIONS = {
     # without its sums
     "estep_no_copies": ("gmm_estep.cu", [
         ("      if (ch + NST - 1 < nch) load(ch + NST - 1);\n", "")]),
-    # attention_cached's K/V ring at another depth (right outputs): two
-    # stages at every head dim, or four at D <= 64
-    "cached_nst2": ("attention_cached.cu", [
-        ("int stages(int D) { return D <= 112 ? 3 : 2; }",
-         "int stages(int D) { return 2; }")]),
-    "cached_nst4": ("attention_cached.cu", [
-        ("int stages(int D) { return D <= 112 ? 3 : 2; }",
-         "int stages(int D) { return D <= 64 ? 4 : D <= 112 ? 3 : 2; }")]),
     "estep_no_sums": ("gmm_estep.cu", [
         ("      for (int kk = 0; kk < KT; ++kk) {\n        const float4 iv",
          "      for (int kk = 0; kk < KT * (ch < 0); ++kk) {\n"
@@ -424,17 +412,16 @@ def sweep_estep_plans(out: Path) -> None:
 
 def sweep_cached_splits(out: Path) -> None:
     """Every key split of bf16 ``attention_cached`` at the check shapes
-    (``checks.CACHED_CASES``), with either merge of the splits, timed on
-    the card (``graph_ms``) and checked against the plain version; one
-    JSON line a plan, then per case the best and the one ``split_plan``
-    picks."""
+    (``checks.CACHED_CASES``), timed on the card (``graph_ms``) and checked
+    against the plain version; one JSON line a plan, then per case the
+    best and the one ``split_plan`` picks."""
     import torch
     from repro_torch.kernels import attention_cached as CA
     from repro_torch.kernels import checks, ref
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
-    pick, fold0 = CA.split_plan, CA.FOLD_MERGE
+    pick = CA.split_plan
     n_sm = CA._sm_count(torch.cuda.current_device())
     with out.open("w") as f:
         for tag, case in checks.CACHED_CASES.items():
@@ -452,21 +439,19 @@ def sweep_cached_splits(out: Path) -> None:
             def call():
                 return CA.attention_cached(q, k, v, qp, kp, window=window)
             rows = []
-            for per in sorted({-(-tiles // n) for n in range(1, tiles + 1)}):
+            pers = {-(-tiles // n) for n in range(1, tiles + 1)}
+            for per in sorted(pers | {chosen[0] // CA.BK}):
                 plan = (per * CA.BK, -(-tiles // per))
-                for fold in ((True, False) if plan[1] > 1 else (fold0,)):
-                    CA.split_plan = lambda *a, p=plan: p
-                    CA.FOLD_MERGE = fold
-                    try:
-                        err = float((call().float() - exp.float())[sel]
-                                    .abs().max())
-                        ms = graph_ms(torch, call, 50)
-                    finally:
-                        CA.split_plan, CA.FOLD_MERGE = pick, fold0
-                    rows.append(dict(case=tag, keys_per_split=plan[0],
-                                     n_split=plan[1], fold=fold,
-                                     graph_ms=ms, max_abs_err=err,
-                                     picked=plan == chosen and fold == fold0))
+                CA.split_plan = lambda *a, p=plan: p
+                try:
+                    err = float((call().float() - exp.float())[sel].abs()
+                                .max())
+                    ms = graph_ms(torch, call, 50)
+                finally:
+                    CA.split_plan = pick
+                rows.append(dict(case=tag, keys_per_split=plan[0],
+                                 n_split=plan[1], graph_ms=ms,
+                                 max_abs_err=err, picked=plan == chosen))
             rows.sort(key=lambda r: r["graph_ms"])
             for r in rows:
                 f.write(json.dumps(r) + "\n")

@@ -52,9 +52,13 @@
 //     ring's slots are not in position order.
 //   - Staging. K and V tiles arrive by 16-byte cp.async (slots past Sk
 //     zero-filled) with the tile's 64 positions in the same copy group,
-//     into a ring of two bf16 stages whose row pitch, D + 8 elements, keeps
-//     the ldmatrix reads free of bank conflicts; the next tile's copies are
-//     in flight while this one is multiplied. Q arrives once, the same way.
+//     into a ring of NST = 2 bf16 stages whose row pitch, D + 8 elements,
+//     keeps the ldmatrix reads free of bank conflicts; the next tile's
+//     copies are in flight while this one is multiplied. Q arrives once,
+//     the same way. Three or four stages (NST - 1 tiles in flight) timed
+//     within a microsecond of two at every check shape: a block's time
+//     is its chain of steps (barrier, products, softmax), ~0.6 us a tile
+//     at decode, not the copies' latency (PERF.md §6, PR 19).
 //   - Products. S = Q.K^T takes Q's A fragments and K's B fragments by
 //     ldmatrix, V's B fragments for P.V by ldmatrix.trans from the same
 //     row-major tile. P goes from the S accumulators straight into P.V's A
@@ -65,13 +69,14 @@
 //   - Softmax: f32 registers, base 2, the scale folded into one FMA before
 //     ex2; masked pairs score -inf; a row with no visible key yet keeps
 //     m = -inf and p = 0.
-//   - Key splits. The keys of a (b, kv head) split into n_split ranges of
+//   - Key splits. Keys of five tiles or more split into n_split ranges of
 //     whole tiles (grid z) so that a decode step fills the card
 //     (`split_plan` in kernels/attention_cached.py). With n_split > 1 each
-//     block leaves its merged, unnormalised (m, l, O) in f32 scratch; then
-//     either the last block of each (b, kv head, row block) to finish,
-//     counted in global memory, merges the splits and writes the output
-//     (fold = 1; it resets its counter), or a second kernel does (fold = 0).
+//     block leaves its merged, unnormalised (m, l, O) in f32 scratch and a
+//     second kernel merges the splits (~3 us). Folding that merge into the
+//     last block of each (b, kv head, row block), counted in global
+//     memory, saved ~1 us at D = 64 decode and lost up to 15 us where a
+//     block holds many rows (one block then merges them all), so it went.
 //   - Registers: a warp holds D / 2 output accumulators a thread; the wide
 //     heads (160, 192) take `min_blocks` = 1 as flash's do.
 // * f32 (only the decode == forward checks): CUDA cores, one block of four
@@ -97,6 +102,7 @@ namespace {
 
 using tc::cp_async;
 using tc::cp_async_commit;
+using tc::cp_async_wait;
 using tc::cp_async_wait_all;
 using tc::ex2;
 using tc::ldsm_x4;
@@ -110,6 +116,7 @@ constexpr int BK = 64;        // key slots per tile
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 32;     // tiles whose positions a block reads at once
+constexpr int NST = 2;        // stages of the bf16 K/V ring
 constexpr int SIMT_ROWS = 16; // query rows per block of the f32 kernel
 constexpr float NEG_INF = -INFINITY;
 
@@ -322,41 +329,9 @@ cached_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // --- merging key splits -----------------------------------------------------
 
-// Columns c .. c + 3 of output row grow (= (b * H + h) * Sq + i) from the
-// n_split partial results (unnormalised O, and (m, l) in base 2): 0 where
-// no split saw a key. Reads through L2 (another block wrote them).
-template <int D>
-__device__ __forceinline__ float4 merge_splits(const float* part_acc,
-                                               const float* part_ml,
-                                               long long grow, long long nr,
-                                               int c, int n_split) {
-  float M = NEG_INF;
-#pragma unroll 8
-  for (int s = 0; s < n_split; ++s)
-    M = fmaxf(M, __ldcg(part_ml + (s * nr + grow) * 2));
-  float L = 0.f;
-  float4 O = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (M != NEG_INF) {
-#pragma unroll 4
-    for (int s = 0; s < n_split; ++s) {
-      const float2 ml =
-          __ldcg(reinterpret_cast<const float2*>(part_ml) + s * nr + grow);
-      if (ml.x == NEG_INF) continue;
-      const float w = ex2(ml.x - M);
-      const float4 a = __ldcg(
-          reinterpret_cast<const float4*>(part_acc + (s * nr + grow) * D + c));
-      L += w * ml.y;
-      O.x += w * a.x;
-      O.y += w * a.y;
-      O.z += w * a.z;
-      O.w += w * a.w;
-    }
-  }
-  const float inv = L > 0.f ? 1.f / L : 0.f;
-  return make_float4(O.x * inv, O.y * inv, O.z * inv, O.w * inv);
-}
-
-// the second kernel: one block per output row (b, h, i)
+// The second kernel, one block per output row grow = (b * H + h) * Sq + i:
+// merges the n_split partial results (unnormalised O, and (m, l) in base 2)
+// into o; 0 where no split saw a key.
 template <typename T, int D>
 __global__ void __launch_bounds__(32)
 combine_kernel(const float* __restrict__ part_acc,
@@ -366,10 +341,31 @@ combine_kernel(const float* __restrict__ part_acc,
   const int b = static_cast<int>(grow / ((long long)H * Sq));
   const int h = static_cast<int>(grow / Sq % H);
   const int i = static_cast<int>(grow % Sq);
+  const float2* ml = reinterpret_cast<const float2*>(part_ml) + grow;
+  float M = NEG_INF;
+#pragma unroll 8
+  for (int s = 0; s < n_split; ++s) M = fmaxf(M, ml[s * n_rows].x);
   for (int c = 4 * threadIdx.x; c < D; c += 4 * 32) {
-    const float4 r =
-        merge_splits<D>(part_acc, part_ml, grow, n_rows, c, n_split);
-    store4(o + b * so.b + h * so.h + i * so.s + c, r.x, r.y, r.z, r.w);
+    float L = 0.f;
+    float4 O = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (M != NEG_INF) {
+#pragma unroll 4
+      for (int s = 0; s < n_split; ++s) {
+        const float2 x = ml[s * n_rows];
+        if (x.x == NEG_INF) continue;
+        const float w = ex2(x.x - M);
+        const float4 a = *reinterpret_cast<const float4*>(
+            part_acc + (s * n_rows + grow) * D + c);
+        L += w * x.y;
+        O.x += w * a.x;
+        O.y += w * a.y;
+        O.z += w * a.z;
+        O.w += w * a.w;
+      }
+    }
+    const float inv = L > 0.f ? 1.f / L : 0.f;
+    store4(o + b * so.b + h * so.h + i * so.s + c, O.x * inv, O.y * inv,
+           O.z * inv, O.w * inv);
   }
 }
 
@@ -410,8 +406,6 @@ struct TileCopy {
 
 // blocks an SM that the register budget is set for (as flash's)
 constexpr int min_blocks(int D) { return D <= 128 ? 3 : 1; }
-// stages of the K/V ring: NST - 1 tiles in flight while one is multiplied
-__host__ __device__ constexpr int stages(int D) { return D <= 112 ? 3 : 2; }
 
 // KS: the warps that share a row group, each taking BK / KS keys of a tile
 template <int D, int KS>
@@ -420,9 +414,8 @@ cached_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const int* __restrict__ q_pos,
                   const int* __restrict__ kv_pos, bf16* __restrict__ o,
                   float* __restrict__ part_acc, float* __restrict__ part_ml,
-                  int* __restrict__ counters, Strides sq, Strides sk,
-                  Strides sv, Strides so, int H, int Hkv, int Sq, int Sk,
-                  int keys_per_split, int n_split, int fold,
+                  Strides sq, Strides sk, Strides sv, Strides so, int H,
+                  int Hkv, int Sq, int Sk, int keys_per_split, int n_split,
                   float scale_log2, int causal, int window) {
   constexpr int RPB = 16 * WARPS / KS;    // rows per block
   constexpr int KW = BK / KS;             // keys of a tile per warp
@@ -431,7 +424,6 @@ cached_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int NKW = KW / 8;             // n-tiles of Q.K^T
   constexpr int DP = D + 8;               // row pitch (bf16 elements)
   constexpr int OP = D + 4;               // row pitch of the f32 O merge
-  constexpr int NST = stages(D);
   using Copy = TileCopy<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [RPB][DP]
@@ -441,7 +433,6 @@ cached_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __shared__ int qp_s[RPB];
   __shared__ int t_n[CHUNK], t_min[CHUNK], t_max[CHUNK];
   __shared__ float m_s[WARPS][16], l_s[WARPS][16];
-  __shared__ int last_s;
 
   const int t = threadIdx.x;
   const int warp = t / 32, lane = t % 32;
@@ -469,8 +460,8 @@ cached_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
   cp_async_commit();
-  if (t < RPB) qp_s[t] = t < nrows ? q_pos[(long long)b * Sq + (r0 + t) % Sq]
-                                   : 0;
+  const int qp_t = t < nrows ? __ldg(q_pos + (long long)b * Sq + (r0 + t) % Sq)
+                             : 0;
   // the positions spanned by the block's rows and by this warp's row group
   // (set once the first chunk's summaries are written)
   int bq_lo = INT_MAX, bq_hi = INT_MIN, wq_lo = INT_MAX, wq_hi = INT_MIN;
@@ -524,6 +515,7 @@ cached_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       pv[jj][0] = in && kt + lane < Sk ? __ldg(kvb + kt + lane) : -1;
       pv[jj][1] = in && kt + lane + 32 < Sk ? __ldg(kvb + kt + lane + 32) : -1;
     }
+    if (c0 == k_begin && t < RPB) qp_s[t] = qp_t;   // after issuing those
 #pragma unroll
     for (int jj = 0; jj < CHUNK / WARPS; ++jj) {
       const int j = warp + WARPS * jj;
@@ -574,17 +566,21 @@ cached_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                              causal, window) != SKIP);
     const int n_vis = __popc(vis);
     unsigned to_issue = vis, to_do = vis;
-    if (n_vis > 0) {
-      issue(c0 + (__ffs(to_issue) - 1) * BK, 0);
-      to_issue &= to_issue - 1;
+    // the first NST - 1 of them, one copy group each (empty past the last)
+#pragma unroll
+    for (int st = 0; st < NST - 1; ++st) {
+      if (to_issue) {
+        issue(c0 + (__ffs(to_issue) - 1) * BK, st);
+        to_issue &= to_issue - 1;
+      }
+      cp_async_commit();
     }
-    cp_async_commit();
 
     for (int idx = 0; idx < n_vis; ++idx) {
-      cp_async_wait_all();
+      cp_async_wait<NST - 2>();
       __syncthreads();  // step idx has landed; step idx - 1 is read by all
-      if (to_issue) {
-        issue(c0 + (__ffs(to_issue) - 1) * BK, (idx + 1) % NST);
+      if (to_issue) {   // into the stage that step idx - 1 read
+        issue(c0 + (__ffs(to_issue) - 1) * BK, (idx + NST - 1) % NST);
         to_issue &= to_issue - 1;
       }
       cp_async_commit();
@@ -758,26 +754,6 @@ cached_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             make_float2(M, L);
     }
   }
-  if (n_split == 1 || !fold) return;
-
-  // fold: the last block of this (b, kv head, row block) to finish merges
-  // the splits and resets its counter
-  __threadfence();
-  __syncthreads();
-  const int cid = blockIdx.x * gridDim.y + blockIdx.y;
-  if (t == 0) last_s = atomicAdd(counters + cid, 1) == n_split - 1;
-  __syncthreads();
-  if (!last_s) return;
-  __threadfence();
-  for (int idx = t; idx < nrows * (D / 4); idx += THREADS) {
-    const int row = idx / (D / 4), c = 4 * (idx % (D / 4));
-    const int r = r0 + row;
-    const int h = kvh * G + r / Sq, i = r % Sq;
-    const long long grow = ((long long)b * H + h) * Sq + i;
-    const float4 res = merge_splits<D>(part_acc, part_ml, grow, nr, c, n_split);
-    store4(o + b * so.b + h * so.h + i * so.s + c, res.x, res.y, res.z, res.w);
-  }
-  if (t == 0) counters[cid] = 0;
 }
 
 struct Args {
@@ -785,9 +761,8 @@ struct Args {
   const int *q_pos, *kv_pos;
   void* o;
   float *part_acc, *part_ml;
-  int* counters;
   Strides sq, sk, sv, so;
-  int B, H, Hkv, Sq, Sk, causal, window, keys_per_split, n_split, fold;
+  int B, H, Hkv, Sq, Sk, causal, window, keys_per_split, n_split;
   float scale_log2;
 };
 
@@ -831,7 +806,6 @@ int launch_f32(const Args& a, cudaStream_t stream) {
 template <int D, int KS>
 int launch_mma(const Args& a, cudaStream_t stream) {
   constexpr int RPB = 16 * WARPS / KS;
-  constexpr int NST = stages(D);
   constexpr size_t smem = sizeof(bf16) * (D + 8) * (RPB + 2 * NST * BK) +
                           sizeof(int) * NST * BK;
   static bool configured = false;
@@ -853,12 +827,11 @@ int launch_mma(const Args& a, cudaStream_t stream) {
   cached_mma_kernel<D, KS><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), a.q_pos, a.kv_pos,
-      static_cast<bf16*>(a.o), a.part_acc, a.part_ml, a.counters, a.sq, a.sk,
-      a.sv, a.so, a.H, a.Hkv, a.Sq, a.Sk, a.keys_per_split, a.n_split, a.fold,
-      a.scale_log2, a.causal, a.window);
+      static_cast<bf16*>(a.o), a.part_acc, a.part_ml, a.sq, a.sk, a.sv, a.so,
+      a.H, a.Hkv, a.Sq, a.Sk, a.keys_per_split, a.n_split, a.scale_log2,
+      a.causal, a.window);
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || a.n_split == 1 || a.fold)
-    return static_cast<int>(err);
+  if (err != cudaSuccess || a.n_split == 1) return static_cast<int>(err);
   return combine<bf16, D>(a, stream);
 }
 
@@ -888,23 +861,21 @@ int launch(int dtype, const Args& a, cudaStream_t s) {
 // 1 is bf16; D is one of 16, 32, 64, 80, 112, 128, 160, 192;
 // H % Hkv == 0. The keys split into n_split ranges of keys_per_split slots
 // (a multiple of 64); with n_split > 1, part_acc holds n_split * B*H*Sq * D
-// floats and part_ml n_split * B*H*Sq * 2, and either a second kernel
-// merges them into o (f32, or bf16 with fold = 0) or the last bf16 block of
-// each (b, kv head, row block) does (fold = 1): counters then holds B*Hkv *
-// (row blocks) zeros, and is left zero.
+// floats and part_ml n_split * B*H*Sq * 2, and a second kernel merges them
+// into o.
 // Returns cudaGetLastError() (cudaErrorInvalidValue for another D or dtype).
 extern "C" int attention_cached_launch(
     const void* q, const void* k, const void* v, const int* q_pos,
     const int* kv_pos, void* o, float* part_acc, float* part_ml,
-    int* counters, const long long* st, int dtype, int B, int H, int Hkv,
-    int Sq, int Sk, int D, int causal, int window, int keys_per_split,
-    int n_split, int fold, void* stream) {
+    const long long* st, int dtype, int B, int H, int Hkv, int Sq, int Sk,
+    int D, int causal, int window, int keys_per_split, int n_split,
+    void* stream) {
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
-  const Args a{q, k, v, q_pos, kv_pos, o, part_acc, part_ml, counters,
+  const Args a{q, k, v, q_pos, kv_pos, o, part_acc, part_ml,
                Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
                Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
                B, H, Hkv, Sq, Sk, causal, window, keys_per_split, n_split,
-               fold, scale * 1.4426950408889634f};
+               scale * 1.4426950408889634f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch<16>(dtype, a, s);

@@ -281,15 +281,17 @@ def test_positions_ref_matches_the_reference_sdpa(causal, window):
 def test_split_plan_covers_the_keys_in_whole_tiles(tag, n_sm):
     """Each check case's key ranges are whole 64-key tiles, none empty,
     covering every key.  On one SM nothing splits; at the H100's 132 the
-    ring server's prefill runs unsplit (the kernel's branch that writes
-    the output from the block) and every other case splits (the combine
-    pass): the chip smoke's cases hold both branches."""
+    ring cases (a wrapped ring and a chunk: under five tiles; the ring
+    server's prefill: a grid that fills the card) run unsplit (the
+    kernel's branch that writes the output from the block) and every
+    decode over a ragged cache splits (the combine pass): the chip
+    smoke's cases hold both branches."""
     B, H, Hkv, Sq, Sk, D, window, kind = checks.CACHED_CASES[tag]
     n_keys = Sk + Sq if kind in ("chunk", "prefill") else Sk
     per, n_split = CA.split_plan(B, H, Hkv, Sq, n_keys, n_sm)
     assert per % CA.BK == 0 and n_split >= 1
     assert (n_split - 1) * per < n_keys <= n_split * per
-    assert (n_split == 1) == (n_sm == 1 or kind == "prefill")
+    assert (n_split == 1) == (n_sm == 1 or kind != "ragged")
 
 
 def test_configs_match_reference():
