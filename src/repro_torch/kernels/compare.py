@@ -46,8 +46,8 @@ version and round, then a summary; writes both to ``--out``.
 ``--sweep-estep`` times every launch plan of the E-step kernel at the main
 path's shapes (one CUDA graph replayed: the card's time alone) and says
 where the wrapper's pick ranks; ``--sweep-cached`` does the same for every
-key split of ``attention_cached`` at its check shapes.  ``chip_smoke.py`` takes its timers from
-here.
+key split of ``attention_cached`` at its check shapes.  ``chip_smoke.py``
+takes its timers from here.
 """
 from __future__ import annotations
 

@@ -73,10 +73,10 @@
 //     whole tiles (grid z) so that a decode step fills the card
 //     (`split_plan` in kernels/attention_cached.py). With n_split > 1 each
 //     block leaves its merged, unnormalised (m, l, O) in f32 scratch and a
-//     second kernel merges the splits (~3 us). Folding that merge into the
-//     last block of each (b, kv head, row block), counted in global
-//     memory, saved ~1 us at D = 64 decode and lost up to 15 us where a
-//     block holds many rows (one block then merges them all), so it went.
+//     second kernel merges the splits (~3 us). Merging in the last block
+//     of each (b, kv head, row block) instead, counted in global memory,
+//     gains ~1 us at D = 64 decode and loses up to 15 us where a block
+//     holds many rows: that one block then merges them all.
 //   - Registers: a warp holds D / 2 output accumulators a thread; the wide
 //     heads (160, 192) take `min_blocks` = 1 as flash's do.
 // * f32 (only the decode == forward checks): CUDA cores, one block of four
@@ -602,12 +602,14 @@ cached_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int ks = 0; ks < KD; ++ks) {
         uint32_t qa[4];
-        ldsm_x4(qa, smem_u32(qw + (lane % 16) * DP + 16 * ks + 8 * (lane / 16)));
+        ldsm_x4(qa,
+                smem_u32(qw + (lane % 16) * DP + 16 * ks + 8 * (lane / 16)));
 #pragma unroll
         for (int np = 0; np < NKW / 2; ++np) {
           uint32_t bfr[4];
-          ldsm_x4(bfr, smem_u32(kt + (16 * np + lane % 8 + 8 * (lane / 16)) * DP +
-                                16 * ks + 8 * ((lane / 8) % 2)));
+          ldsm_x4(bfr,
+                  smem_u32(kt + (16 * np + lane % 8 + 8 * (lane / 16)) * DP +
+                           16 * ks + 8 * ((lane / 8) % 2)));
           mma_bf16(s[2 * np], qa, bfr[0], bfr[1]);
           mma_bf16(s[2 * np + 1], qa, bfr[2], bfr[3]);
         }
@@ -731,8 +733,8 @@ cached_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float mj = m_s[w0 + j][rr];
         if (mj == NEG_INF) continue;
         const float f = ex2(mj - M);
-        const float4 a =
-            *reinterpret_cast<const float4*>(Of + ((w0 + j) * 16 + rr) * OP + c);
+        const float4 a = *reinterpret_cast<const float4*>(
+            Of + ((w0 + j) * 16 + rr) * OP + c);
         L += f * l_s[w0 + j][rr];
         O.x += f * a.x;
         O.y += f * a.y;

@@ -102,7 +102,7 @@ def _random_positions(rng, kind, B, Sq, Sk):
         kv = np.where(j < length, j, -1)
         q = length - 1 + np.zeros((1, Sq), int)
         window = int(rng.integers(1, Sk))
-    elif kind == "ring":            # wrapped: slot j holds latest - (latest - j) % W
+    elif kind == "ring":            # wrapped: latest - (latest - j) % W
         latest = rng.integers(Sk, 4 * Sk, (B, 1))
         kv = latest - np.remainder(latest - j, Sk)
         q = latest + np.zeros((1, Sq), int)
