@@ -39,6 +39,16 @@ forward on f32 weights with two faulty-cache controls.  Flash and cached
 attention are held at head dims 160 and 192 and at a group of 48, and
 one MoE layer at full width on the card against the CPU.
 
+Training (``train_phase``): granite-3-2b at full width and depth takes 6
+Adam steps through ``train.make_train_step`` on one batch of 8 × 1024
+tokens (remat on), its loss falling, through the flash forward and the
+hand-written flash backward (held before at ``kernels.checks.BWD_CASES``
+against its plain version and autograd, and timed beside SDPA's
+backward); hubert-xlarge (48 layers) trains on its masked loss,
+granite-moe-3b-a800m (4 layers) with its aux loss; one f32 step of
+granite-3-2b (2 layers) on the card is held against the same step on the
+CPU; the launcher runs 20 steps and its checkpoint restores bitwise.
+
 Prints one JSON object per line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
 script exits nonzero.  Without a CUDA card, or without the rest of the
@@ -327,6 +337,7 @@ def kernel_phase(torch, dev, card):
     flash_cases(torch, dev, g, res)
     recurrent_checks(torch, dev, g, res)
     cached_checks(torch, dev, g, res)
+    bwd_checks(torch, dev, g, res)
     moe_layer_checks(torch, card)
 
     for name, r in res.items():
@@ -393,6 +404,106 @@ def flash_cases(torch, dev, g, res):
                 bytes=2.0 * (2 * B * H * Sq * D + 2 * B * Hkv * Sk * D),
                 peak=BF16_FLOPS)
             del q, k, v, kx, vx
+
+
+def check_grad(torch, name, got, exp, tol, **shape) -> float:
+    """max |got − exp|; raises unless it is at most tol · max |exp| (a
+    gradient's entries near 0 carry the rounding of its largest)."""
+    torch.cuda.synchronize()
+    got, exp = got.float(), exp.float()
+    err = float((got - exp).abs().max())
+    scale = float(exp.abs().max())
+    finite = bool(torch.isfinite(got).all())
+    emit({"phase": "kernel_check", "kernel": name, **shape,
+          "max_abs_err": err, "max_abs": scale, "tol": tol,
+          "bound": tol * scale, "finite": finite})
+    if not (err <= tol * scale and finite):
+        raise AssertionError(f"{name} {shape}: max abs err {err} over {tol}"
+                             f" × max |exp| {scale}")
+    return err
+
+
+def bwd_checks(torch, dev, g, res):
+    """Flash attention's backward at ``kernels.checks.BWD_CASES``, f32 and
+    bf16: the forward's lse against ``ref.attention_lse_ref`` (rows with
+    no visible key at −inf), dq, dk, dv against ``ref.attention_bwd_ref``
+    on the kernels' o and lse within ``BWD_TOL_*`` × each gradient's max,
+    in f32 also against autograd of ``ref.attention_ref`` where every row
+    sees a key (the plain version gives a row with none the mean of v), dq
+    exactly 0 on rows with no key.  Timed at granite-3-2b's training shape
+    in bf16 beside the plain version and SDPA's backward (autograd of
+    ``scaled_dot_product_attention``, K and V repeated over the group: a
+    yardstick, never the path)."""
+    from repro_torch.kernels import checks, ref
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention_bwd as FAB
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_phase = time.perf_counter()
+    for tag, case in checks.BWD_CASES.items():
+        B, H, Hkv, Sq, Sk, D, causal, window, prefix = case
+        kw = dict(causal=causal, window=window, prefix=prefix)
+        rows = ref.attention_mask(Sq, Sk, device=dev, **kw).any(-1)
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do = checks.bwd_inputs(g, dev, B, H, Hkv, Sq, Sk, D, dt)
+            shape = dict(case=tag, B=B, H=H, Hkv=Hkv, Sq=Sq, Sk=Sk, D=D,
+                         dtype=str(dt), **kw)
+            o, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+            check_close(torch, "flash_attention", lse[:, :, rows],
+                        ref.attention_lse_ref(q, k, **kw)[:, :, rows],
+                        ATTN_TOL_F32, output="lse", **shape)
+            if not bool((lse[:, :, ~rows] == -math.inf).all()):
+                raise AssertionError(f"{tag}: lse of a row with no key "
+                                     "is not -inf")
+            got = FAB.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            exp = ref.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+            tol = (checks.BWD_TOL_BF16 if dt == torch.bfloat16
+                   else checks.BWD_TOL_F32)
+            err = max(check_grad(torch, "flash_attention_bwd", a, e, tol,
+                                 output=n, against="attention_bwd_ref",
+                                 **shape)
+                      for n, a, e in zip(("dq", "dk", "dv"), got, exp))
+            if float(got[0][:, :, ~rows].abs().sum()) != 0.0:
+                raise AssertionError(f"{tag}: dq of a row with no key")
+            if dt == torch.float32 and bool(rows.all()):
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                ref.attention_ref(*leaves, **kw).backward(do)
+                for n, a, t in zip(("dq", "dk", "dv"), got, leaves):
+                    check_grad(torch, "flash_attention_bwd", a, t.grad, tol,
+                               output=n, against="autograd attention_ref",
+                               **shape)
+                del leaves
+            if tag != "granite_train" or dt != torch.bfloat16:
+                continue
+            G = H // Hkv
+            qs, ks, vs = (t.detach().requires_grad_() for t in (
+                q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)))
+            out = sdpa(qs, ks, vs, is_causal=causal)
+
+            def call():
+                return FAB.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+
+            def lib():
+                return torch.autograd.grad(out, (qs, ks, vs), do,
+                                           retain_graph=True)
+            # the five products of 64-key tiles over the visible pairs;
+            # q, k, v, o, dO and lse read once, dq, dk, dv written once
+            pairs = Sq * (Sq + 1) / 2 if causal else Sq * Sk
+            res["flash_attention_bwd"] = dict(
+                max_abs_err=err, shape=[B, H, Hkv, Sq, Sk, D],
+                causal=causal, ms=time_ms(torch, call),
+                device_ms=device_ms(torch, call),
+                graph_ms=graph_ms(torch, call),
+                plain_ms=time_ms(torch, lambda: ref.attention_bwd_ref(
+                    q, k, v, o, lse, do, **kw)),
+                library_ms=time_ms(torch, lib),
+                library_device_ms=device_ms(torch, lib),
+                flops=10.0 * B * H * pairs * D,
+                bytes=2.0 * (4 * B * H * Sq * D + 4 * B * Hkv * Sk * D)
+                + 4.0 * B * H * Sq,
+                peak=BF16_FLOPS)
+            del qs, ks, vs, out
+        del q, k, v, do, o, lse, got, exp
+    emit({"phase": "bwd_checks", "s": time.perf_counter() - t_phase})
 
 
 def moe_layer_checks(torch, card):
@@ -2084,6 +2195,250 @@ def slice6_paths(torch, dev, card, kept):
     return out
 
 
+# training: Adam under the launcher's cosine schedule (peak 3e-4
+# over 200 steps, 20 of warmup: its first steps), each model's steps on
+# one repeated batch
+TRAIN_LR = dict(peak_lr=3e-4, total_steps=200, warmup_steps=20)
+TRAIN = {"granite-3-2b": dict(depth=40, batch=8, seq=1024, steps=6),
+         "hubert-xlarge": dict(depth=48, batch=4, seq=512, steps=3),
+         "granite-moe-3b-a800m": dict(depth=4, batch=8, seq=1024, steps=3)}
+# the whole step on the card against the CPU: granite-3-2b at full width,
+# 2 layers, f32, 2 × 256 tokens; every gradient leaf (and so the sgd
+# update) within TRAIN_TOL_F32 × its max: both sides run f32 (no TF32),
+# summing in their own orders through 2 blocks and a 49155-way xent
+TRAIN_CHECK = dict(depth=2, batch=2, seq=256)
+TRAIN_TOL_F32 = 1e-3
+
+
+def train_batch(torch, cfg, batch, seq, g):
+    """One batch of ``cfg``'s training loss on the card: the launcher's
+    token stream (``data.token_lm_batches``) for an LM, random frames with
+    a mask at the config's ``mask_prob`` and random targets for the
+    encoder."""
+    from repro_torch import data as D
+    dev = g.device
+    if cfg.family == "encoder":
+        mask = torch.rand(batch, seq, generator=g, device=dev) < cfg.mask_prob
+        mask[:, 0] = True
+        return {"frames": torch.randn(batch, seq, cfg.frame_embed_dim,
+                                      generator=g, device=dev),
+                "mask": mask,
+                "targets": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                         generator=g, device=dev)}
+    return D.token_lm_batches(cfg.vocab_size, batch, seq, 1, generator=g,
+                              device=dev)[0]
+
+
+def select_layers(blocks):
+    """Each layer's weights by indexing the stacks layer by layer: the
+    ``models.model._unstack`` that unbinding replaced, timed beside it."""
+    n = next(iter(blocks.values())).shape[0]
+    return [{k: v[layer] for k, v in blocks.items()} for layer in range(n)]
+
+
+def train_model(torch, dev, card, name, depth, batch, seq, steps):
+    """``steps`` Adam steps of ``name`` (its first ``depth`` layers, full
+    width, bf16, remat on) through ``train.make_train_step`` on one batch,
+    counted: flash forward twice a layer and step (the forward, then the
+    recompute of the checkpointed block), its backward once, no plain
+    version; losses finite.  granite-3-2b's loss must fall over its steps;
+    then a step under the profiler, and steps with the stacks indexed
+    layer by layer against unbound, in turns.  Returns the launch counts
+    of the counted steps."""
+    import dataclasses
+    import gc
+    import statistics
+
+    from repro_torch import optim, train
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(name), n_layers=depth)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    t_phase = t0 = time.perf_counter()
+    params = M.init_params(cfg, g)
+    b = train_batch(torch, cfg, batch, seq, g)
+    opt = optim.adam(optim.cosine_schedule(**TRAIN_LR))
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = train.make_train_step(cfg, opt)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, b)
+        torch.cuda.synchronize()
+        rows.append(dict(s=time.perf_counter() - t0,
+                         **{k: float(v) for k, v in met.items()}))
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(r["s"] for r in rows[1:])
+    tokens = batch * seq
+    plain = sum(v for k, v in counts.items() if k.startswith("plain_on"))
+    line = {"phase": "train", "model": cfg.name, "family": cfg.family,
+            "n_layers": depth, "of_layers": get_config(name).n_layers,
+            "n_params": n_params_of(params), "batch": batch, "seq": seq,
+            "init_s": init_s, "steps": rows,
+            "step_s_median_after_first": med, "tokens_per_s": tokens / med,
+            "peak_bytes": peak,
+            "flash_attention": counts["flash_attention"],
+            "flash_attention_bwd": counts["flash_attention_bwd"],
+            "plain_on_cuda": plain, "card": card}
+    losses = [r["loss"] for r in rows]
+    ok = (all(math.isfinite(x) for x in losses)
+          and counts["flash_attention"] == 2 * depth * steps
+          and counts["flash_attention_bwd"] == depth * steps
+          and plain == 0)
+    if cfg.n_experts:
+        ok = ok and all(r["aux"] > 0 for r in rows)
+    if name == "granite-3-2b":
+        ok = ok and losses[-1] < losses[0]
+        unstack = M._unstack
+        line["profile"] = device_profile(torch, lambda: step(params, state,
+                                                             b))
+        turns = []
+        for variant in ("select", "unbind", "select", "unbind"):
+            M._unstack = select_layers if variant == "select" else unstack
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, state, _ = step(params, state, b)
+            torch.cuda.synchronize()
+            turns.append({"stacks": variant,
+                          "s": time.perf_counter() - t0,
+                          "peak_bytes": torch.cuda.max_memory_allocated()})
+        M._unstack = unstack
+        line["unbind_vs_select"] = turns
+    line["s"] = time.perf_counter() - t_phase
+    emit(line)
+    if not ok:
+        raise AssertionError(f"train {name}: losses {losses}, counts "
+                             f"{counts}")
+    del params, state, b, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_check(torch, dev, card):
+    """One sgd step of granite-3-2b at full width, ``TRAIN_CHECK``'s depth,
+    f32, on the card through the kernels against the same step on the CPU
+    through the plain versions, same weights and tokens: the loss and
+    each parameter's update within ``TRAIN_TOL_F32`` × its max.  Returns
+    the card step's launch counts."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import optim, train
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config("granite-3-2b"),
+                              n_layers=TRAIN_CHECK["depth"], dtype="float32")
+    g = torch.Generator()
+    g.manual_seed(3)
+    on_cpu = M.init_params(cfg, g, device="cpu")
+    ids = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (TRAIN_CHECK["batch"], TRAIN_CHECK["seq"] + 1))
+    ids = torch.from_numpy(ids)
+    batch = {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+    t0 = time.perf_counter()
+    out = {}
+    for where in ("cuda", "cpu"):
+        p0 = optim.tree_map(lambda t: t.to(where), on_cpu)
+        p1 = optim.tree_map(lambda t: t.clone(), p0)
+        opt = optim.sgd(1.0)
+        ops.reset_launch_counts()
+        _, _, met = train.make_train_step(cfg, opt)(
+            p1, opt.init(p1), {k: v.to(where) for k, v in batch.items()})
+        counts = ops.launch_counts()
+        out[where] = (float(met["loss"]), optim.tree_map(
+            lambda a, b: (a - b).cpu(), p1, p0), counts)
+        del p0, p1
+    (loss, upd, counts), (loss_c, upd_c, _) = out["cuda"], out["cpu"]
+    worst = 0.0
+    for a, e in zip(optim.tree_leaves(upd), optim.tree_leaves(upd_c)):
+        worst = max(worst, float((a - e).abs().max())
+                    / float(e.abs().max()))
+    plain = sum(v for k, v in counts.items() if k.startswith("plain_on"))
+    line = {"phase": "train_check", "model": cfg.name,
+            "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+            "batch": TRAIN_CHECK["batch"], "seq": TRAIN_CHECK["seq"],
+            "loss_card": loss, "loss_cpu": loss_c,
+            "max_rel_update_err": worst, "tol": TRAIN_TOL_F32,
+            "s": time.perf_counter() - t0,
+            "flash_attention": counts["flash_attention"],
+            "flash_attention_bwd": counts["flash_attention_bwd"],
+            "plain_on_cuda": plain, "card": card}
+    emit(line)
+    if not (abs(loss - loss_c) <= TRAIN_TOL_F32 * abs(loss_c)
+            and worst <= TRAIN_TOL_F32 and plain == 0
+            and counts["flash_attention_bwd"] == cfg.n_layers):
+        raise AssertionError(f"train_check: {line}")
+    return counts
+
+
+def train_launcher(torch, card):
+    """The reference's launcher at its defaults (granite-3-2b reduced to 4
+    layers of d 512, batch 8 × 256) for 20 steps with ``--ckpt``; the
+    checkpoint loaded and ``restore_like``'d into the trained parameters'
+    structure gives them back bitwise.  Returns the launch counts."""
+    import contextlib
+    import io
+
+    from repro_torch import checkpoint, optim
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as LT
+
+    path = Path(__file__).resolve().parent / "build" / "smoke" / "train.npz"
+    ops.reset_launch_counts()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        loss, params = LT.run(["--steps", "20", "--log-every", "5",
+                               "--ckpt", str(path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    back = checkpoint.restore_like({"params": params, "step": 0},
+                                   checkpoint.load(str(path)))
+    bitwise = back["step"] == 20 and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(optim.tree_leaves(back["params"]),
+                        optim.tree_leaves(params)))
+    plain = sum(v for k, v in counts.items() if k.startswith("plain_on"))
+    emit({"phase": "train_launcher", "loss": loss, "s": wall,
+          "log": log.getvalue().splitlines(), "ckpt_bytes":
+          path.stat().st_size, "restored_bitwise": bitwise,
+          "flash_attention": counts["flash_attention"],
+          "flash_attention_bwd": counts["flash_attention_bwd"],
+          "plain_on_cuda": plain, "card": card})
+    path.unlink()
+    if not (bitwise and math.isfinite(loss) and plain == 0
+            and counts["flash_attention_bwd"] == 4 * 20):
+        raise AssertionError(f"train_launcher: loss {loss}, bitwise "
+                             f"{bitwise}, counts {counts}")
+    return counts
+
+
+def train_phase(torch, dev, card):
+    """Training through the flash forward and the hand-written backward:
+    ``TRAIN``'s models, the whole-step check and the launcher.  Returns
+    each run's launch counts."""
+    counts = {}
+    for name, spec in TRAIN.items():
+        counts[f"train {name}"] = train_model(torch, dev, card, name, **spec)
+    counts["train_check"] = train_check(torch, dev, card)
+    counts["train_launcher"] = train_launcher(torch, card)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2106,7 +2461,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     reports = _build.build(["gmm_estep.cu", "flash_attention.cu", "wkv6.cu",
-                            "ssd.cu", "attention_cached.cu"])
+                            "ssd.cu", "attention_cached.cu",
+                            "flash_attention_bwd.cu"])
     emit({"phase": "build", "s": time.perf_counter() - t0,
           "ptxas": {s: [ln.strip() for ln in r.splitlines()
                         if "registers" in ln or "spill" in ln]
@@ -2124,6 +2480,7 @@ def main() -> int:
     counts.update(serving_paths(torch, dev, card))
     for name, spec in WIDE.items():
         counts.update(wide_phase(torch, dev, card, name, **spec))
+    counts.update(train_phase(torch, dev, card))
 
     sources = {"estep_fused": ("src/repro_torch/kernels/csrc/gmm_estep.cu",
                                "src/repro/kernels/gmm_estep.py:177"),
@@ -2139,6 +2496,10 @@ def main() -> int:
                # no TPU kernel: the reference's XLA _sdpa_chunked
                "attention_cached": (
                    "src/repro_torch/kernels/csrc/attention_cached.cu",
+                   None),
+               # no TPU kernel: XLA's autodiff of _sdpa_chunked
+               "flash_attention_bwd": (
+                   "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                    None)}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms")
@@ -2155,6 +2516,9 @@ def main() -> int:
                                       "library_device_ms", "graph_ms",
                                       "library_graph_ms")}
                 for r in kres[name]["by_shape"]]
+        if name == "flash_attention_bwd":
+            entry.update({kk: kres[name][kk] for kk in (
+                "shape", "graph_ms", "library_device_ms")})
         if name == "flash_attention":   # zamba2-7b's D = 112, FLASH_CASES
             entry["by_shape"] = [
                 {"case": k, "shape": kres[k]["shape"],
@@ -2162,7 +2526,8 @@ def main() -> int:
                  **{kk: kres[k][kk] for kk in (*keys, "library_device_ms",
                                                "graph_ms",
                                                "library_graph_ms")}}
-                for k in kres if k.startswith("flash_attention")]
+                for k in kres if k.startswith("flash_attention")
+                and k != "flash_attention_bwd"]
         kernels.append(entry)
     emit({"card": card, "kernels": kernels,
           "smoke_s": time.perf_counter() - t_start})

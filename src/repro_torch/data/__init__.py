@@ -1,18 +1,24 @@
-"""Synthetic class-structured datasets and FL partitioners, in numpy.
+"""Synthetic class-structured datasets and FL partitioners, in numpy, and
+the synthetic token stream of backbone training.
 
 A copy of the numpy parts of ``repro/data/__init__.py``: the same seeds give
 bit-identical datasets and client splits, the §5.3 shift splits
 (``disjoint_label_split``, ``covariate_shift_pair``, ``task_shift_pair``)
 included.  ``make_dataset`` returns numpy
-arrays; callers move them to a device.  See DESIGN.md §6 for why synthetic
+arrays; callers move them to a device.  ``token_lm_batches`` takes the
+reference's ``jax.random`` draws as tensors (or draws its own from a
+``torch.Generator``).  See DESIGN.md §6 for why synthetic
 class-Gaussian data stands in for the paper's image datasets.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
+
+from repro_torch import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,3 +107,43 @@ def task_shift_pair(cfg_a: DatasetConfig, cfg_b: DatasetConfig,
     xb, yb = make_dataset(dataclasses.replace(cfg_b, seed=cfg_b.seed + 7919))
     yb = yb + cfg_a.n_classes
     return (xa, ya), (xb, yb), cfg_a.n_classes + cfg_b.n_classes
+
+
+# ---------------------------------------------------------------------------
+# synthetic token streams (backbone training / train_step inputs)
+# ---------------------------------------------------------------------------
+
+
+def token_lm_batches(vocab_size: int, batch: int, seq_len: int,
+                     n_batches: int, *,
+                     generator: Optional[torch.Generator] = None,
+                     gumbel: Optional[Sequence] = None,
+                     device: Optional[Union[str, torch.device]] = None
+                     ) -> List[Dict[str, torch.Tensor]]:
+    """Zipf-ish synthetic LM stream with next-token labels: ``n_batches``
+    of {"tokens", "labels"}, each (batch, seq_len) int32.
+
+    The reference draws each batch's (batch, seq_len + 1) ids with
+    ``jax.random.categorical`` over logits −1.2·log1p(id), that is
+    argmax(Gumbel + logits) over the vocabulary.  Here the Gumbel draws
+    are tensors: ``gumbel``, one (batch, seq_len + 1, vocab_size) f32
+    array per batch (fed the reference's draws, this gives its tokens), or
+    drawn from ``generator`` on the device as −log(−log U), U uniform on
+    [tiny, 1) (``jax.random.gumbel``'s law).  On ``cuda`` unless
+    ``device="cpu"``.
+    """
+    dev = resolve_device(device)
+    logits = -1.2 * torch.log1p(torch.arange(vocab_size, dtype=torch.float32,
+                                             device=dev))
+    shape = (batch, seq_len + 1, vocab_size)
+    tiny = torch.finfo(torch.float32).tiny
+    out = []
+    for i in range(n_batches):
+        if gumbel is not None:
+            g = torch.as_tensor(gumbel[i], device=dev)
+        else:
+            u = torch.rand(shape, generator=generator, device=dev)
+            g = -torch.log(-torch.log(u.clamp_min_(tiny)))
+        toks = torch.argmax(g + logits, dim=-1).to(torch.int32)
+        out.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    return out

@@ -65,6 +65,38 @@ FLASH_CASES = {"pixtral_prefill": (2, 32, 8, 1088, 1088, 160, True),
 # relative) apart
 FLASH_TOL_BF16 = 1e-2
 
+# flash attention's backward, tag: (B, H, Hkv, Sq, Sk, D, causal, window,
+# prefix): granite-3-2b's training shape (GQA 32 / 8, causal, S = 1024),
+# hubert-xlarge's (16 / 16 heads of 80, bidirectional), a window, a prefix,
+# queries at the tail of more keys, D = 112 and 128 with GQA, and rows
+# before the first key (Sq > Sk, causal: no visible key, gradient 0)
+BWD_CASES = {"granite_train": (8, 32, 8, 1024, 1024, 64, True, 0, 0),
+             "hubert_train": (4, 16, 16, 512, 512, 80, False, 0, 0),
+             "window": (2, 4, 2, 300, 300, 64, True, 100, 0),
+             "prefix": (2, 4, 4, 200, 200, 64, True, 0, 70),
+             "tail": (2, 4, 2, 70, 200, 64, True, 0, 0),
+             "d112_gqa": (2, 8, 2, 200, 200, 112, True, 0, 0),
+             "d128_gqa": (2, 8, 2, 200, 200, 128, True, 0, 0),
+             "no_key_rows": (1, 2, 2, 100, 40, 64, True, 0, 0)}
+# |got − exp| ≤ tol · max |exp| per gradient.  f32: the forward's 2e-3; the
+# kernel sums in another order than the plain version (≈ 1e-6 apart).
+# bf16: both sides compute in f32 from the same bf16 inputs, o and lse and
+# each round its f32 gradient to bf16, so an element may differ by one bf16
+# step at its own size (2^-8 relative): ≤ 4e-3 of the largest, with room
+# for the f32 sums' order
+BWD_TOL_F32 = 2e-3
+BWD_TOL_BF16 = 1e-2
+
+
+def bwd_inputs(g: torch.Generator, dev, B, H, Hkv, Sq, Sk, D, dtype):
+    """q, k, v and an output gradient dO, N(0, 1) in ``dtype``; q and dO as
+    (B, H, Sq, D) views of (B, Sq, H, D) tensors, the layout the model's
+    activations give them."""
+    def heads(h, S):
+        return torch.randn(B, S, h, D, generator=g, device=dev).to(
+            dtype).transpose(1, 2)
+    return heads(H, Sq), heads(Hkv, Sk), heads(Hkv, Sk), heads(H, Sq)
+
 
 # cached attention, tag: (B, H, Hkv, Sq, Sk, D, window, kind).  "ragged":
 # a dense cache at granite-3-2b's decode, each row at its own length 1 …

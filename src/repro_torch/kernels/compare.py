@@ -3,7 +3,7 @@
     python3 src/repro_torch/kernels/compare.py --tree NAME=DIR [--tree ...]
         [--flash NAME=BASE:FILE.cu[:ABLATION] ...]
         [--ablate NAME=BASE:ABLATION[:ABLATION] ...] [--rounds 2]
-        [--only flash,ssd,wkv6,estep,cached] [--out build/compare.jsonl]
+        [--only flash,ssd,wkv6,estep,cached,bwd] [--out build/compare.jsonl]
     python3 src/repro_torch/kernels/compare.py --sweep-estep
         [--out build/estep_plans.jsonl]
     python3 src/repro_torch/kernels/compare.py --sweep-cached
@@ -40,9 +40,11 @@ kernel (and SDPA beside flash and ``attention_cached``) two ways:
   a CUDA graph and replayed, the card's time with no host work.
 
 ``--only`` builds and times the named groups alone (``flash``, ``ssd``,
-``wkv6``, ``estep``: both E-steps, ``cached``); a tree from before
-``attention_cached`` needs ``--only`` without ``cached``.  Prints one JSON object per
-version and round, then a summary; writes both to ``--out``.
+``wkv6``, ``estep``: both E-steps, ``cached``, ``bwd``: flash's backward
+at granite-3-2b's training shape); a tree from before ``attention_cached``
+or the backward needs ``--only`` without ``cached`` or ``bwd``.  Prints
+one JSON object per version and round, then a summary; writes both to
+``--out``.
 ``--sweep-estep`` times every launch plan of the E-step kernel at the main
 path's shapes (one CUDA graph replayed: the card's time alone) and says
 where the wrapper's pick ranks; ``--sweep-cached`` does the same for every
@@ -119,7 +121,8 @@ def _times(torch, fn) -> dict:
 
 # --only: each group's source and the kernels it times
 GROUPS = {"flash": "flash_attention.cu", "ssd": "ssd.cu", "wkv6": "wkv6.cu",
-          "estep": "gmm_estep.cu", "cached": "attention_cached.cu"}
+          "estep": "gmm_estep.cu", "cached": "attention_cached.cu",
+          "bwd": "flash_attention_bwd.cu"}
 
 
 def child(label: str, only: str = "") -> dict:
@@ -237,6 +240,24 @@ def child(label: str, only: str = "") -> dict:
                 **_times(torch, call), "graph_ms": graph_ms(torch, call),
                 "library": {**_times(torch, lib),
                             "graph_ms": graph_ms(torch, lib)}}
+    if "bwd" in groups:
+        # flash attention's backward at granite-3-2b's training shape, on
+        # the forward's o and lse (older trees have no backward)
+        from repro_torch.kernels import flash_attention_bwd as FAB
+        g.manual_seed(0)
+        B, H, Hkv, Sq, Sk, D, causal, _, _ = checks.BWD_CASES[
+            "granite_train"]
+        q, k, v, do = checks.bwd_inputs(g, dev, B, H, Hkv, Sq, Sk, D,
+                                        torch.bfloat16)
+        o, lse = FA.flash_attention(q, k, v, causal=causal, return_lse=True)
+
+        def call():
+            return FAB.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        exp = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+        res["flash_attention_bwd"] = {
+            "max_abs_err": max(float((a.float() - e.float()).abs().max())
+                               for a, e in zip(call(), exp)),
+            **_times(torch, call), "graph_ms": graph_ms(torch, call)}
     return res
 
 

@@ -6,7 +6,9 @@
 // causal, sliding `window` and bidirectional `prefix` masks; GQA (q head h
 // reads kv head h / G); scale 1/sqrt(D); running (m, l, acc) in f32; rows
 // with no visible key come out as 0. Keys past Sk are masked here, which
-// the TPU kernel left to its callers' block sizes.
+// the TPU kernel left to its callers' block sizes. On request
+// (`flash_attention_lse_launch`) both kernels also write each row's
+// logsumexp, which the backward (flash_attention_bwd.cu) reads.
 //
 // What bounds it on an H100: at the encoder's shape (B=256, H=16, S=64,
 // D=80, bf16) one call is 4*B*H*S*S*D = 5.4 GFLOP over 168 MB of q, k, v
@@ -116,9 +118,10 @@ __device__ __forceinline__ bool visible(int q_pos, int kp, int Sk, int causal,
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, Strides sq,
-             Strides sk, Strides sv, Strides so, int H, int Hkv, int Sq,
-             int Sk, float scale, int causal, int window, int prefix) {
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
+             Strides so, int H, int Hkv, int Sq, int Sk, float scale,
+             int causal, int window, int prefix) {
   extern __shared__ float smem[];
   float* Ks = smem;                      // [BKV][D + 1]
   float* Vs = Ks + BKV * (D + 1);        // [BKV][D]
@@ -211,6 +214,9 @@ flash_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* op = o + b * so.b + h * so.h + (long long)qi * so.s;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) op[sub + TPR * i] = acc[i] / l_safe;
+    // the row's logsumexp of the scaled scores; -inf with no visible key
+    if (lse != nullptr && sub == 0)
+      lse[(long long)bh * Sq + qi] = l > 0.f ? m + logf(l) : -INFINITY;
   }
 }
 
@@ -289,9 +295,10 @@ __global__ void __launch_bounds__(MMA_THREADS, min_blocks(D))
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, Strides sq, Strides sk,
-                 Strides sv, Strides so, int H, int Hkv, int Sq, int Sk,
-                 float scale_log2, int causal, int window, int prefix) {
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 Strides sq, Strides sk, Strides sv, Strides so, int H,
+                 int Hkv, int Sq, int Sk, float scale_log2, int causal,
+                 int window, int prefix) {
   constexpr int KD = D / 16;              // k-steps of Q.K^T
   constexpr int ND = D / 8;               // n-tiles of P.V
   constexpr int NK = BKV / 8;             // n-tiles of Q.K^T
@@ -485,6 +492,16 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  // the rows' logsumexp of the scaled scores, natural log: m is in base 2
+  // (scores times scale * log2 e), so lse = (m + log2 l) ln 2; -inf for a
+  // row with no visible key
+  if (lse != nullptr && tq == 0) {
+    const float ln2 = 0.6931471805599453f;
+    float* lr = lse + (long long)bh * Sq + wi0 + g;
+    if (wi0 + g < Sq) lr[0] = l0 > 0.f ? (m0 + log2f(l0)) * ln2 : -INFINITY;
+    if (wi0 + g + 8 < Sq)
+      lr[8] = l1 > 0.f ? (m1 + log2f(l1)) * ln2 : -INFINITY;
+  }
   __nv_bfloat16* os = Qs + 16 * warp * DP;
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
@@ -510,6 +527,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;
   Strides sq, sk, sv, so;
   int B, H, Hkv, Sq, Sk, causal, window, prefix;
   float scale;
@@ -531,8 +549,8 @@ int launch_f32(const Args& a, cudaStream_t stream) {
   if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
   flash_simt_kernel<D><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.sq, a.sk,
-      a.sv, a.so, a.H, a.Hkv, a.Sq, a.Sk, a.scale, a.causal, a.window,
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.sq,
+      a.sk, a.sv, a.so, a.H, a.Hkv, a.Sq, a.Sk, a.scale, a.causal, a.window,
       a.prefix);
   return static_cast<int>(cudaGetLastError());
 }
@@ -560,7 +578,8 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<__nv_bfloat16*>(a.o), a.sq, a.sk, a.sv, a.so, a.H, a.Hkv,
+      static_cast<__nv_bfloat16*>(a.o), a.lse, a.sq, a.sk, a.sv, a.so, a.H,
+      a.Hkv,
       a.Sq, a.Sk, a.scale * 1.4426950408889634f, a.causal, a.window,
       a.prefix);
   return static_cast<int>(cudaGetLastError());
@@ -579,16 +598,19 @@ int launch(int dtype, const Args& a, cudaStream_t s) {
 // (b, h, i, c) of each lies at base + b*st[0] + h*st[1] + i*st[2] + c, the
 // strides (in elements) given for q, k, v, o in that order in st[12].
 // dtype 0 is f32, 1 is bf16. D is one of 16, 32, 64, 80, 112, 128, 160,
-// 192;
-// H % Hkv == 0.
-// Returns cudaGetLastError() (cudaErrorInvalidValue for another D or dtype).
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o,
-                                      const long long* st, int dtype, int B,
-                                      int H, int Hkv, int Sq, int Sk, int D,
-                                      int causal, int window, int prefix,
-                                      void* stream) {
-  const Args a{q, k, v, o,
+// 192; H % Hkv == 0. lse, when not null, receives each row's logsumexp of
+// the scaled scores as (B, H, Sq) contiguous f32 (-inf for a row with no
+// visible key): what the backward (flash_attention_bwd.cu) recomputes P
+// from. Returns cudaGetLastError() (cudaErrorInvalidValue for another D or
+// dtype).
+extern "C" int flash_attention_lse_launch(const void* q, const void* k,
+                                          const void* v, void* o, float* lse,
+                                          const long long* st, int dtype,
+                                          int B, int H, int Hkv, int Sq,
+                                          int Sk, int D, int causal,
+                                          int window, int prefix,
+                                          void* stream) {
+  const Args a{q, k, v, o, lse,
                Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
                Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
                B, H, Hkv, Sq, Sk, causal, window, prefix,
@@ -605,4 +627,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 192: return launch<192>(dtype, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The same without the logsumexp (the signature of the variants under
+// kernels/variants/, which kernels/compare.py times against this one).
+extern "C" int flash_attention_launch(const void* q, const void* k,
+                                      const void* v, void* o,
+                                      const long long* st, int dtype, int B,
+                                      int H, int Hkv, int Sq, int Sk, int D,
+                                      int causal, int window, int prefix,
+                                      void* stream) {
+  return flash_attention_lse_launch(q, k, v, o, nullptr, st, dtype, B, H,
+                                    Hkv, Sq, Sk, D, causal, window, prefix,
+                                    stream);
 }

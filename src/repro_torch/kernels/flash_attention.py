@@ -4,7 +4,8 @@ Port of ``repro/kernels/flash_attention.py`` (Pallas ``flash_attention``)
 with its full semantics: causal, ``window`` and ``prefix`` masks, queries
 at the tail of the keys, GQA, f32 (m, l, acc), and 0 for rows with no
 visible key.  See the note at the top of the ``.cu`` file for the design
-and what bounds it.
+and what bounds it.  With ``return_lse`` it also returns each row's
+logsumexp, which the backward (``flash_attention_bwd``) reads.
 
 Takes CUDA tensors only; ``ops`` sends CPU tensors to ``ref.attention_ref``.
 ``LAUNCHES`` counts kernel launches.
@@ -26,6 +27,7 @@ WARP_ROWS = 16                  # queries per warp of the bf16 kernel
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 _FN = None
+_LSE_FN = None
 
 
 def key_tile_range(q_block: int, Sq: int, Sk: int, causal: bool,
@@ -50,6 +52,31 @@ def key_tile_range(q_block: int, Sq: int, Sk: int, causal: bool,
     p_end = -(-min(prefix, Sk) // BKV) if prefix > 0 else 0
     lo, t_end = (k_lo // BKV, k_hi // BKV + 1) if k_hi >= k_lo else (0, 0)
     return min(p_end, lo), lo, max(t_end, p_end)
+
+
+def query_tile_range(key_tile: int, Sq: int, Sk: int, causal: bool,
+                     window: int, prefix: int,
+                     rows: int = BQ) -> Tuple[int, int]:
+    """The query tiles of ``rows`` queries that hold a row seeing a key of
+    the ``key_tile``-th tile of ``BKV`` keys, as ``[lo, hi)``: the tiles
+    the backward's dK/dV block of that key tile walks.
+
+    A tile holding a key below ``prefix`` is seen by every row.  Otherwise
+    causal masking gives the first row (the one at the tile's first key,
+    ``q_pos = i + Sk − Sq``) and ``window`` the last (the one ``window − 1``
+    past the tile's last key).  ``csrc/flash_attention_bwd.cu``
+    (``query_tiles``) states the same arithmetic.
+    """
+    k0 = key_tile * BKV
+    kl = min(Sk, k0 + BKV) - 1
+    off = Sk - Sq
+    if prefix > 0 and k0 < prefix:
+        return 0, -(-Sq // rows)
+    q_lo = max(0, k0 - off) if causal else 0
+    q_hi = min(Sq - 1, kl + window - 1 - off) if window > 0 else Sq - 1
+    if q_hi < q_lo:
+        return 0, 0
+    return q_lo // rows, q_hi // rows + 1
 
 
 def tile_needs_mask(tile: int, q_block: int, Sq: int, Sk: int,
@@ -93,10 +120,23 @@ def _launch_fn():
     return _FN
 
 
+def _lse_launch_fn():
+    global _LSE_FN
+    if _LSE_FN is None:
+        fn = _build.load(_SOURCE).flash_attention_lse_launch
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LSE_FN = fn
+    return _LSE_FN
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    prefix: int = 0) -> torch.Tensor:
-    """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D) → (B, H, Sq, D) in q.dtype.
+                    prefix: int = 0, return_lse: bool = False):
+    """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D) → (B, H, Sq, D) in q.dtype,
+    and with ``return_lse`` also the rows' logsumexp of the scaled scores,
+    (B, H, Sq) f32, −inf for a row with no visible key.
 
     Any strides are taken as long as the last dimension is contiguous
     (bf16: and the base and strides are 16-byte aligned), so (B, S, H, D)
@@ -133,10 +173,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((B, Sq, H, D), dtype=dt, device=dev).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
-    status = _launch_fn()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        _DTYPES[dt], B, H, Hkv, Sq, Sk, D, int(causal), int(window),
-        int(prefix), torch.cuda.current_stream(dev).cuda_stream)
+    tail = (_DTYPES[dt], B, H, Hkv, Sq, Sk, D, int(causal), int(window),
+            int(prefix), torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if return_lse:
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+        status = _lse_launch_fn()(*ptrs, lse.data_ptr(), strides, *tail)
+    else:
+        status = _launch_fn()(*ptrs, strides, *tail)
     _build.check(status, "flash_attention_launch")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -3,13 +3,22 @@
 The tensor's device picks the path: a CUDA tensor launches the hand-written
 kernel (or the wrapper raises), a CPU tensor takes the plain version in
 ``ref``.  There is no fallback from a failed kernel to the plain version.
+
+Gradients: on the CPU autograd differentiates the plain versions.  On the
+card ``attention`` takes ``FlashAttention`` (the forward kernel, then the
+hand-written backward) when grad is on and an input requires it; ``wkv6``
+and ``ssd`` have no backward kernel yet and raise, naming the ROADMAP item
+that waits for them (``refuse_backward``).
 """
 from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from repro_torch.kernels import attention_cached as _ac
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import gmm_estep as _ge
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd as _ssd
@@ -18,8 +27,23 @@ from repro_torch.kernels import wkv6 as _wkv6
 __all__ = ["gmm_estep", "gmm_estep_fused", "attention", "attention_cached",
            "wkv6", "ssd", "launch_counts", "reset_launch_counts"]
 
-_KERNEL_COUNTS = (_ge.LAUNCHES, _fa.LAUNCHES, _ac.LAUNCHES, _wkv6.LAUNCHES,
-                  _ssd.LAUNCHES)
+_KERNEL_COUNTS = (_ge.LAUNCHES, _fa.LAUNCHES, _fab.LAUNCHES, _ac.LAUNCHES,
+                  _wkv6.LAUNCHES, _ssd.LAUNCHES)
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_backward(name: str, *tensors) -> None:
+    """Raise when a kernel without a backward would have to record a
+    gradient: the card has no plain fallback for it."""
+    if _wants_grad(*tensors):
+        raise ValueError(f"{name}: no backward kernel on the card yet (the "
+                         f"training of rwkv6-3b and zamba2-7b waits for "
+                         f"{_fab.WAITING_ITEM}); run it under "
+                         "torch.no_grad()")
 
 
 def gmm_estep(x, mu, var, pi):
@@ -43,6 +67,8 @@ def gmm_estep_fused(x, mu, var, pi):
 def attention(q, k, v, *, causal=True, window=0, prefix=0):
     """(B, H, Sq, D) × (B, Hkv, Sk, D) attention → (B, H, Sq, D)."""
     if q.is_cuda:
+        if _wants_grad(q, k, v):
+            return _fab.FlashAttention.apply(q, k, v, causal, window, prefix)
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    prefix=prefix)
     return ref.attention_ref(q, k, v, causal=causal, window=window,
@@ -63,6 +89,7 @@ def attention_cached(q, k, v, q_pos, kv_pos, *, causal=True, window=0):
 def wkv6(r, k, v, lw, u, s0, chunk: int = 16):
     """(B, H, T, Dh) WKV6 recurrence → (out, final state)."""
     if r.is_cuda:
+        refuse_backward("wkv6", r, k, v, lw, u, s0)
         return _wkv6.wkv6(r, k, v, lw, u, s0, chunk=chunk)
     return ref.wkv6_ref(r, k, v, lw, u, s0, chunk=chunk)
 
@@ -70,6 +97,7 @@ def wkv6(r, k, v, lw, u, s0, chunk: int = 16):
 def ssd(x, a_log, B, C, s0, chunk: int = 64):
     """(Bt, H, T, P) Mamba2 SSD recurrence → (y, final state)."""
     if x.is_cuda:
+        refuse_backward("ssd", x, a_log, B, C, s0)
         return _ssd.ssd(x, a_log, B, C, s0, chunk=chunk)
     return ref.ssd_ref(x, a_log, B, C, s0, chunk=chunk)
 

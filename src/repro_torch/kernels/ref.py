@@ -15,6 +15,7 @@ import torch
 _LOG2PI = math.log(2.0 * math.pi)
 
 CUDA_CALLS: Dict[str, int] = {"estep": 0, "estep_fused": 0, "attention": 0,
+                               "attention_lse": 0, "attention_bwd": 0,
                                "attention_cached": 0, "wkv6": 0, "ssd": 0}
 
 
@@ -105,6 +106,16 @@ def attention_mask(Sq: int, Sk: int, *, causal: bool = True,
     return mask
 
 
+def _scores(q, k, causal, window, prefix):
+    """(scaled f32 scores (B, Hkv, G, Sq, Sk), the (Sq, Sk) mask)."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Hkv, H // Hkv, Sq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) / math.sqrt(D)
+    return s, attention_mask(Sq, Sk, causal=causal, window=window,
+                             prefix=prefix, device=q.device)
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
                   prefix: int = 0) -> torch.Tensor:
@@ -116,17 +127,59 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     every query.  GQA maps q head h to kv head h // (H // Hkv).
     """
     _note("attention", q)
-    B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    G = H // Hkv
-    qf = q.float().reshape(B, Hkv, G, Sq, D)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) / math.sqrt(D)
-    mask = attention_mask(Sq, Sk, causal=causal, window=window,
-                          prefix=prefix, device=q.device)
+    s, mask = _scores(q, k, causal, window, prefix)
     s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return o.reshape(B, H, Sq, D).to(q.dtype)
+    return o.reshape(q.shape).to(q.dtype)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      prefix: int = 0) -> torch.Tensor:
+    """(B, H, Sq) f32: each row's logsumexp of its visible scaled scores
+    (the flash forward's second output), −inf for a row with no visible
+    key."""
+    _note("attention_lse", q)
+    s, mask = _scores(q, k, causal, window, prefix)
+    lse = torch.logsumexp(torch.where(mask, s, -math.inf), dim=-1)
+    return lse.reshape(q.shape[:3])
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      *, causal: bool = True, window: int = 0,
+                      prefix: int = 0):
+    """(dq, dk, dv) of ``attention_ref`` at output gradient ``do``, by the
+    FlashAttention-2 formulas the backward kernel computes, in f32:
+
+        P = exp(S·scale − lse) on visible pairs (0 elsewhere, and on rows
+            whose lse is −inf),   D_i = Σ_c dO·O,
+        dV = Pᵀ dO,   dS = P ∘ (dO Vᵀ − D_i),
+        dQ = dS K · scale,   dK = dSᵀ Q · scale,
+
+    with dK and dV summed over each kv head's group of query heads; each
+    returned in its input's dtype.  ``o`` and ``lse`` are the forward's
+    (``attention_ref`` / ``attention_lse_ref``, or the kernel's).
+    """
+    _note("attention_bwd", q)
+    B, H, Sq, D = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    s, mask = _scores(q, k, causal, window, prefix)
+    lse5 = lse.float().reshape(B, Hkv, G, Sq, 1)
+    ok = mask & torch.isfinite(lse5)
+    p = torch.where(ok, torch.exp(s - torch.where(ok, lse5, 0.0)), 0.0)
+    do5 = do.float().reshape(B, Hkv, G, Sq, D)
+    di = (do5 * o.float().reshape(B, Hkv, G, Sq, D)).sum(-1, keepdim=True)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, do5)
+    ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", do5, v.float()) - di)
+    scale = 1.0 / math.sqrt(D)
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds,
+                      q.float().reshape(B, Hkv, G, Sq, D)) * scale
+    return (dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def positions_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
@@ -168,7 +221,7 @@ def attention_positions_ref(q: torch.Tensor, k: torch.Tensor,
     s = torch.where(mask[:, None, None], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return o.reshape(B, H, Sq, D).to(q.dtype)
+    return o.reshape(q.shape).to(q.dtype)
 
 
 def _chunk_len(T: int, chunk: int) -> int:

@@ -5,7 +5,11 @@ cache and the feature map.
 prefill or decode step against ``init_cache``'s state, written in place.
 ``features`` is the FedPFT foundation feature map (the ``f`` in the
 paper's ``w = h ∘ f``): the input embedding, the block stack,
-``rms_norm``, and a mean-pool over positions in f32.  Six families run:
+``rms_norm``, and a mean-pool over positions in f32.  ``loss_fn`` is the
+training loss; it and ``final_hidden`` record an autograd graph (with
+``cfg.remat``, each block under activation checkpointing), while
+``forward`` and ``features`` serve under ``torch.no_grad()``.  Six
+families run:
 
   dense   — token embedding, pre-norm GQA causal attention + MLP blocks
             (SwiGLU, squared ReLU or GELU)
@@ -22,13 +26,17 @@ paper's ``w = h ∘ f``): the input embedding, the block stack,
             KV cache per use of the shared block
 
 Parameters are a plain dict in the reference's layout: per-layer weights
-stacked on a leading ``(L, …)`` axis, ``x @ W`` orientation.
+stacked on a leading ``(L, …)`` axis, ``x @ W`` orientation.  A forward
+splits each stack into its layers once (``_unstack``): under autograd one
+``unbind`` gives each stack's gradient in one pass, where indexing layer
+by layer would write a zero tensor the size of the whole stack per layer.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import mamba2 as mamba_mod
@@ -183,14 +191,33 @@ def _layer(blocks: Params, layer: int) -> Params:
     return {k: v[layer] for k, v in blocks.items()}
 
 
+def _unstack(blocks: Params) -> List[Params]:
+    """Each layer's weights of the stacked (L, …) ``blocks``: one
+    ``unbind`` per leaf."""
+    keys = list(blocks)
+    return [dict(zip(keys, leaves))
+            for leaves in zip(*(blocks[k].unbind(0) for k in keys))]
+
+
+def _block(cfg: ModelConfig, fn, *args, **kw):
+    """``fn(*args, **kw)``, under activation checkpointing when
+    ``cfg.remat`` and a graph is being recorded (the reference's
+    ``jax.checkpoint`` around each layer): the backward recomputes the
+    block from its input instead of keeping its activations."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+    return fn(*args, **kw)
+
+
 def _run_transformer(cfg: ModelConfig, x, blocks, cache=None, *, positions,
                      window: int = 0):
     """The transformer stack: (x, the summed MoE aux loss).  Layer l
     attends with ``cache``'s slice l when a cache is given."""
     aux = 0.0
-    for layer in range(cfg.n_layers):
-        x, a = _transformer_block(
-            cfg, x, _layer(blocks, layer), positions=positions,
+    for layer, w in enumerate(_unstack(blocks)):
+        x, a = _block(
+            cfg, _transformer_block, cfg, x, w, positions=positions,
             window=window,
             layer_cache=None if cache is None else _layer(cache, layer))
         aux = aux + a
@@ -212,10 +239,10 @@ def _run_rwkv(cfg: ModelConfig, x, blocks, state=None, *,
     if state is None:
         zero = _layer(rwkv_mod.init_rwkv_state(cfg, x.shape[0], x.device,
                                                n_layers=1), 0)
-    for layer in range(cfg.n_layers):
+    for layer, w in enumerate(_unstack(blocks)):
         st = zero if state is None else _layer(state, layer)
-        x, new = rwkv_mod.rwkv_block(cfg, x, _layer(blocks, layer), st,
-                                     use_cache=use_cache)
+        x, new = _block(cfg, rwkv_mod.rwkv_block, cfg, x, w, st,
+                        use_cache=use_cache)
         if state is not None:
             _store(state, layer, new)
     return x
@@ -234,19 +261,18 @@ def _run_hybrid(cfg: ModelConfig, x, params, cache=None, *, positions,
     if cache is None:
         zero = _layer(mamba_mod.init_mamba_state(cfg, 1, x.shape[0],
                                                  x.device), 0)
-    blocks = params["blocks"]
-    for layer in range(cfg.n_layers):
+    for layer, w in enumerate(_unstack(params["blocks"])):
         st = zero if cache is None else _layer(cache["mamba"], layer)
-        x, new = mamba_mod.mamba_block(cfg, x, _layer(blocks, layer), st,
-                                       use_cache=use_cache)
+        x, new = _block(cfg, mamba_mod.mamba_block, cfg, x, w, st,
+                        use_cache=use_cache)
         if cache is not None:
             _store(cache["mamba"], layer, new)
         if (layer + 1) % A == 0:
             kv = (_layer(cache["shared_kv"], layer // A) if use_cache
                   else None)
-            x, _ = _transformer_block(cfg, x, params["shared_attn"],
-                                      positions=positions, window=window,
-                                      layer_cache=kv)
+            x, _ = _block(cfg, _transformer_block, cfg, x,
+                          params["shared_attn"], positions=positions,
+                          window=window, layer_cache=kv)
     return x
 
 
@@ -288,24 +314,73 @@ def forward(cfg: ModelConfig, params: Params, batch, *, cache: Any = None,
                                       positions=P, window=window)
         aux = aux + moe_aux
     x = rms_norm(x, params["final_norm"])
+    return _logits(cfg, params, x), aux, cache
+
+
+def _logits(cfg: ModelConfig, params: Params, x) -> torch.Tensor:
+    """(B, S, V) f32: the ``cfg.dtype`` product cast to f32, soft-capped
+    when the config says so."""
     logits = (x @ params["lm_head"]).float()
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
-    return logits, aux, cache
+    return logits
+
+
+def _hidden(cfg: ModelConfig, params: Params, batch, window: int = 0):
+    """(post-norm hidden states (B, S, d), MoE aux loss f32): the block
+    stack from zero state and no cache, as the reference's training
+    forward runs it.  Records a graph when grad is on."""
+    x, positions = _embed_inputs(cfg, params, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        x = _run_rwkv(cfg, x, params["blocks"])
+    elif cfg.family == "hybrid":
+        x = _run_hybrid(cfg, x, params, positions=positions, window=window)
+    else:
+        x, moe_aux = _run_transformer(cfg, x, params["blocks"],
+                                      positions=positions, window=window)
+        aux = aux + moe_aux
+    return rms_norm(x, params["final_norm"]), aux
 
 
 def final_hidden(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
     """Post-norm final hidden states (B, S, d)."""
-    x, positions = _embed_inputs(cfg, params, batch)
-    if cfg.family == "ssm":
-        x = _run_rwkv(cfg, x, params["blocks"])
-    elif cfg.family == "hybrid":
-        x = _run_hybrid(cfg, x, params, positions=positions)
+    return _hidden(cfg, params, batch)[0]
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor,
+          valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy in f32, over the ``valid`` positions when
+    given (at least one counted, as the reference divides)."""
+    lp = torch.log_softmax(logits, dim=-1)
+    ll = lp.gather(-1, labels.long()[..., None])[..., 0]
+    if valid is None:
+        return -ll.mean()
+    valid = valid.float()
+    return -(ll * valid).sum() / valid.sum().clamp_min(1.0)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch, window: int = 0):
+    """Training loss → (total, {"xent", "aux"}), total = xent + aux.
+
+    Batch keys per family (tensors on the parameters' device):
+      LM (dense, moe, ssm, hybrid): tokens (B, S), labels (B, S)
+      vlm: tokens, img, labels — labels align with the TEXT tokens only
+      encoder: frames (B, S, F), mask (B, S) bool, targets (B, S); the
+        loss counts the masked positions only
+    The MoE aux is the load-balancing loss summed over the layers (0
+    elsewhere).  Records a graph when grad is on.
+    """
+    x, aux = _hidden(cfg, params, batch, window)
+    logits = _logits(cfg, params, x)
+    if cfg.family == "encoder":
+        loss = _xent(logits, batch["targets"], batch["mask"])
+    elif cfg.family == "vlm":
+        loss = _xent(logits[:, n_img(cfg):], batch["labels"])
     else:
-        x, _ = _run_transformer(cfg, x, params["blocks"],
-                                positions=positions)
-    return rms_norm(x, params["final_norm"])
+        loss = _xent(logits, batch["labels"])
+    return loss + aux, {"xent": loss, "aux": aux}
 
 
 @torch.no_grad()

@@ -13,7 +13,9 @@ ssd 2e-4 in f32 (``tests/test_wkv6_kernel.py``, ``tests/test_ssd_kernel.py``),
 against the plain versions and, at the paths' head sizes and T = 200,
 against the float64 step recurrence; 1e-2 in bf16, where kernel and plain
 version each round one f32 result to bf16 (at most one bf16 step, 2^-8
-relative, apart).  The flash cases over several key tiles compare the
+relative, apart).  Flash attention's backward: ``kernels.checks``'s
+``BWD_TOL_F32`` / ``BWD_TOL_BF16`` × each gradient's max.  The flash cases
+over several key tiles compare the
 rows with a visible key; bf16 layouts that the kernels cannot copy in
 16-byte pieces raise ``ValueError`` without a launch.
 """
@@ -27,6 +29,7 @@ import torch
 from repro_torch.configs import FOUNDATION_STANDIN, get_config
 from repro_torch.kernels import attention_cached as CA
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import flash_attention_bwd as FAB
 from repro_torch.kernels import gmm_estep as GE
 from repro_torch.kernels import checks, ops, ref
 from repro_torch.kernels import ssd as SSD
@@ -194,6 +197,81 @@ def test_rows_with_no_visible_key_are_zero(dev, dtype):
     k = torch.randn(1, 2, 4, 32, device=dev).to(dtype)
     out = FA.flash_attention(q, k, k, causal=True)
     assert float(out[:, :, :4].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, checks.BWD_TOL_F32),
+                                       (torch.bfloat16, checks.BWD_TOL_BF16)])
+@pytest.mark.parametrize("tag", sorted(checks.BWD_CASES))
+def test_flash_attention_bwd(dev, tag, dtype, tol):
+    """The backward kernel's dq, dk, dv against ``ref.attention_bwd_ref``
+    on the forward kernel's o and lse, each within tol × its max
+    (``kernels.checks``), and the lse against ``ref.attention_lse_ref``;
+    rows with no visible key get dq = 0 exactly."""
+    B, H, Hkv, Sq, Sk, D, causal, window, prefix = checks.BWD_CASES[tag]
+    g = torch.Generator(device=dev)
+    g.manual_seed(Sq + Sk + D)
+    q, k, v, do = checks.bwd_inputs(g, dev, B, H, Hkv, Sq, Sk, D, dtype)
+    kw = dict(causal=causal, window=window, prefix=prefix)
+    o, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, ref.attention_lse_ref(q, k, **kw),
+                               rtol=2e-3, atol=2e-3)
+    before = FAB.LAUNCHES["flash_attention_bwd"]
+    got = FAB.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert FAB.LAUNCHES["flash_attention_bwd"] == before + 1
+    exp = ref.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for name, a, e in zip(("dq", "dk", "dv"), got, exp):
+        assert a.dtype == dtype and a.shape == e.shape, name
+        err = float((a.float() - e.float()).abs().max())
+        assert err <= tol * float(e.float().abs().max()), (name, err)
+    rows = ref.attention_mask(Sq, Sk, device=dev, **kw).any(-1)
+    assert float(got[0][:, :, ~rows].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("causal,window,prefix", [(True, 0, 0),
+                                                  (False, 0, 0),
+                                                  (True, 9, 4)])
+def test_ops_attention_gradient_through_the_kernels(dev, causal, window,
+                                                    prefix):
+    """``ops.attention`` with grad on CUDA runs the forward and backward
+    kernels: f32 gradients equal autograd of the plain version within
+    2e-3 × their max, and no plain version runs on the card."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    q, k, v, do = checks.bwd_inputs(g, dev, 2, 4, 2, 150, 150, 64,
+                                    torch.float32)
+    kw = dict(causal=causal, window=window, prefix=prefix)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launch_counts()
+    ops.attention(*leaves, **kw).backward(do)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd"] == 1
+    assert not any(n for key, n in counts.items()
+                   if key.startswith("plain_on_cuda"))
+    plain = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref.attention_ref(*plain, **kw).backward(do)
+    for a, e in zip(leaves, plain):
+        err = float((a.grad - e.grad).abs().max())
+        assert err <= 2e-3 * float(e.grad.abs().max())
+
+
+def test_refusals_without_a_backward_kernel(dev):
+    """Head dims 160 and 192, and ``wkv6`` / ``ssd`` with grad, raise
+    naming their ROADMAP item before any launch; no plain fallback."""
+    ops.reset_launch_counts()
+    x = torch.randn(1, 2, 64, 160, device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="ROADMAP item 13"):
+        ops.attention(x, x, x, causal=True)
+    r = torch.randn(1, 2, 64, 64, device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="ROADMAP item 13"):
+        ops.wkv6(r, r, r, r, torch.zeros(2, 64, device=dev),
+                 torch.zeros(1, 2, 64, 64, device=dev))
+    with pytest.raises(ValueError, match="ROADMAP item 13"):
+        bc = torch.zeros(1, 64, 16, device=dev)
+        ops.ssd(r, torch.zeros(1, 2, 64, device=dev), bc, bc,
+                torch.zeros(1, 2, 16, 64, device=dev))
+    assert not any(n for key, n in ops.launch_counts().items()
+                   if key.startswith("plain_on_cuda"))
 
 
 # cached attention over per-row positions: kind, (B, Sq, Sk), window
