@@ -45,9 +45,11 @@ tokens (remat on), its loss falling, through the flash forward and the
 hand-written flash backward (held before at ``kernels.checks.BWD_CASES``
 against its plain version and autograd, and timed beside SDPA's
 backward); hubert-xlarge (48 layers) trains on its masked loss,
-granite-moe-3b-a800m (4 layers) with its aux loss; one f32 step of
-granite-3-2b (2 layers) on the card is held against the same step on the
-CPU; the launcher runs 20 steps and its checkpoint restores bitwise.
+granite-moe-3b-a800m (4 layers) with its aux loss, pixtral-12b (4
+layers) on its text loss behind a 1024-patch image prefix at head dim
+160; one f32 step each of granite-3-2b and hubert-xlarge (2 layers) on
+the card is held against the same step on the CPU; the launcher runs 20
+steps and its checkpoint restores bitwise.
 
 Prints one JSON object per line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -430,15 +432,18 @@ def bwd_checks(torch, dev, g, res):
     on the kernels' o and lse within ``BWD_TOL_*`` × each gradient's max,
     in f32 also against autograd of ``ref.attention_ref`` where every row
     sees a key (the plain version gives a row with none the mean of v), dq
-    exactly 0 on rows with no key.  Timed at granite-3-2b's training shape
-    in bf16 beside the plain version and SDPA's backward (autograd of
-    ``scaled_dot_product_attention``, K and V repeated over the group: a
-    yardstick, never the path)."""
+    exactly 0 on rows with no key.  Timed in bf16 at the training shapes
+    (``compare.BWD_TIMED``: granite-3-2b, hubert-xlarge, pixtral-12b and
+    nemotron-4-340b's heads) beside the plain version and SDPA's backward
+    (autograd of ``scaled_dot_product_attention``, K and V repeated over
+    the group: a yardstick, never the path)."""
     from repro_torch.kernels import checks, ref
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import flash_attention_bwd as FAB
+    from repro_torch.kernels.compare import BWD_TIMED
     sdpa = torch.nn.functional.scaled_dot_product_attention
     t_phase = time.perf_counter()
+    shapes = []
     for tag, case in checks.BWD_CASES.items():
         B, H, Hkv, Sq, Sk, D, causal, window, prefix = case
         kw = dict(causal=causal, window=window, prefix=prefix)
@@ -472,7 +477,7 @@ def bwd_checks(torch, dev, g, res):
                                output=n, against="autograd attention_ref",
                                **shape)
                 del leaves
-            if tag != "granite_train" or dt != torch.bfloat16:
+            if tag not in BWD_TIMED or dt != torch.bfloat16:
                 continue
             G = H // Hkv
             qs, ks, vs = (t.detach().requires_grad_() for t in (
@@ -487,22 +492,27 @@ def bwd_checks(torch, dev, g, res):
                                            retain_graph=True)
             # the five products of 64-key tiles over the visible pairs;
             # q, k, v, o, dO and lse read once, dq, dk, dv written once
-            pairs = Sq * (Sq + 1) / 2 if causal else Sq * Sk
-            res["flash_attention_bwd"] = dict(
-                max_abs_err=err, shape=[B, H, Hkv, Sq, Sk, D],
-                causal=causal, ms=time_ms(torch, call),
-                device_ms=device_ms(torch, call),
-                graph_ms=graph_ms(torch, call),
-                plain_ms=time_ms(torch, lambda: ref.attention_bwd_ref(
-                    q, k, v, o, lse, do, **kw)),
-                library_ms=time_ms(torch, lib),
-                library_device_ms=device_ms(torch, lib),
-                flops=10.0 * B * H * pairs * D,
-                bytes=2.0 * (4 * B * H * Sq * D + 4 * B * Hkv * Sk * D)
-                + 4.0 * B * H * Sq,
-                peak=BF16_FLOPS)
+            pairs = int(ref.attention_mask(Sq, Sk, device=dev, **kw).sum())
+            r = dict(case=tag, max_abs_err=err, shape=[B, H, Hkv, Sq, Sk, D],
+                     causal=causal, ms=time_ms(torch, call),
+                     device_ms=device_ms(torch, call),
+                     graph_ms=graph_ms(torch, call),
+                     plain_ms=time_ms(torch, lambda: ref.attention_bwd_ref(
+                         q, k, v, o, lse, do, **kw)),
+                     library_ms=time_ms(torch, lib),
+                     library_device_ms=device_ms(torch, lib),
+                     flops=10.0 * B * H * pairs * D,
+                     bytes=2.0 * (4 * B * H * Sq * D + 4 * B * Hkv * Sk * D)
+                     + 4.0 * B * H * Sq,
+                     peak=BF16_FLOPS)
+            r["bound_ms"] = 1e3 * max(r["flops"] / r["peak"],
+                                      r["bytes"] / HBM_BYTES_S)
+            r["bound_by"] = ("operations" if r["flops"] / r["peak"]
+                             >= r["bytes"] / HBM_BYTES_S else "bytes")
+            shapes.append(r)
             del qs, ks, vs, out
         del q, k, v, do, o, lse, got, exp
+    res["flash_attention_bwd"] = dict(shapes[0], by_shape=shapes)
     emit({"phase": "bwd_checks", "s": time.perf_counter() - t_phase})
 
 
@@ -2199,22 +2209,28 @@ def slice6_paths(torch, dev, card, kept):
 # over 200 steps, 20 of warmup: its first steps), each model's steps on
 # one repeated batch
 TRAIN_LR = dict(peak_lr=3e-4, total_steps=200, warmup_steps=20)
+# pixtral-12b: 4 layers (≈ 0.29 B parameters a layer beside 1.34 B of
+# embeddings and head, 12 bytes a parameter with Adam: ≈ 30 GB), each row
+# 1024 stub image patches and 1024 tokens, the loss on the text alone
 TRAIN = {"granite-3-2b": dict(depth=40, batch=8, seq=1024, steps=6),
          "hubert-xlarge": dict(depth=48, batch=4, seq=512, steps=3),
-         "granite-moe-3b-a800m": dict(depth=4, batch=8, seq=1024, steps=3)}
-# the whole step on the card against the CPU: granite-3-2b at full width,
-# 2 layers, f32, 2 × 256 tokens; every gradient leaf (and so the sgd
-# update) within TRAIN_TOL_F32 × its max: both sides run f32 (no TF32),
-# summing in their own orders through 2 blocks and a 49155-way xent
-TRAIN_CHECK = dict(depth=2, batch=2, seq=256)
+         "granite-moe-3b-a800m": dict(depth=4, batch=8, seq=1024, steps=3),
+         "pixtral-12b": dict(depth=4, batch=4, seq=1024, steps=3)}
+# the whole step on the card against the CPU, at full width and 2 layers,
+# f32: granite-3-2b on 2 × 256 tokens, hubert-xlarge on 2 × 256 frames
+# (its masked loss, bidirectional D = 80); every gradient leaf (and so the
+# sgd update) within TRAIN_TOL_F32 × its max: both sides run f32 (no
+# TF32), summing in their own orders through 2 blocks and the output head
+TRAIN_CHECK = {"granite-3-2b": dict(depth=2, batch=2, seq=256),
+               "hubert-xlarge": dict(depth=2, batch=2, seq=256)}
 TRAIN_TOL_F32 = 1e-3
 
 
 def train_batch(torch, cfg, batch, seq, g):
     """One batch of ``cfg``'s training loss on the card: the launcher's
-    token stream (``data.token_lm_batches``) for an LM, random frames with
-    a mask at the config's ``mask_prob`` and random targets for the
-    encoder."""
+    token stream (``data.token_lm_batches``) for an LM, after random stub
+    image patches for a vlm; random frames with a mask at the config's
+    ``mask_prob`` and random targets for the encoder."""
     from repro_torch import data as D
     dev = g.device
     if cfg.family == "encoder":
@@ -2225,8 +2241,12 @@ def train_batch(torch, cfg, batch, seq, g):
                 "mask": mask,
                 "targets": torch.randint(0, cfg.vocab_size, (batch, seq),
                                          generator=g, device=dev)}
-    return D.token_lm_batches(cfg.vocab_size, batch, seq, 1, generator=g,
-                              device=dev)[0]
+    b = D.token_lm_batches(cfg.vocab_size, batch, seq, 1, generator=g,
+                           device=dev)[0]
+    if cfg.family == "vlm":
+        b["img"] = torch.randn(batch, cfg.n_img_tokens, cfg.img_embed_dim,
+                               generator=g, device=dev)
+    return b
 
 
 def select_layers(blocks):
@@ -2324,30 +2344,43 @@ def train_model(torch, dev, card, name, depth, batch, seq, steps):
     return counts
 
 
-def train_check(torch, dev, card):
-    """One sgd step of granite-3-2b at full width, ``TRAIN_CHECK``'s depth,
-    f32, on the card through the kernels against the same step on the CPU
-    through the plain versions, same weights and tokens: the loss and
-    each parameter's update within ``TRAIN_TOL_F32`` × its max.  Returns
-    the card step's launch counts."""
-    import dataclasses
-
+def check_batch(torch, cfg, batch, seq):
+    """A batch of ``cfg``'s loss made on the host with numpy (seed 3), the
+    same on the card and on the CPU: tokens and labels for an LM, frames,
+    a mask at ``mask_prob`` and targets for the encoder."""
     import numpy as np
+    rng = np.random.default_rng(3)
+    if cfg.family == "encoder":
+        mask = rng.random((batch, seq)) < cfg.mask_prob
+        mask[:, 0] = True
+        return {"frames": torch.from_numpy(rng.standard_normal(
+                    (batch, seq, cfg.frame_embed_dim)).astype(np.float32)),
+                "mask": torch.from_numpy(mask),
+                "targets": torch.from_numpy(
+                    rng.integers(0, cfg.vocab_size, (batch, seq)))}
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq + 1)))
+    return {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+
+
+def train_check(torch, dev, card, name, depth, batch, seq):
+    """One sgd step of ``name`` at full width and ``depth`` layers, f32, on
+    the card through the kernels against the same step on the CPU through
+    the plain versions, same weights and batch: the loss and each
+    parameter's update within ``TRAIN_TOL_F32`` × its max.  Returns the
+    card step's launch counts."""
+    import dataclasses
 
     from repro_torch import optim, train
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(get_config("granite-3-2b"),
-                              n_layers=TRAIN_CHECK["depth"], dtype="float32")
+    cfg = dataclasses.replace(get_config(name), n_layers=depth,
+                              dtype="float32")
     g = torch.Generator()
     g.manual_seed(3)
     on_cpu = M.init_params(cfg, g, device="cpu")
-    ids = np.random.default_rng(3).integers(
-        0, cfg.vocab_size, (TRAIN_CHECK["batch"], TRAIN_CHECK["seq"] + 1))
-    ids = torch.from_numpy(ids)
-    batch = {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+    b = check_batch(torch, cfg, batch, seq)
     t0 = time.perf_counter()
     out = {}
     for where in ("cuda", "cpu"):
@@ -2356,7 +2389,7 @@ def train_check(torch, dev, card):
         opt = optim.sgd(1.0)
         ops.reset_launch_counts()
         _, _, met = train.make_train_step(cfg, opt)(
-            p1, opt.init(p1), {k: v.to(where) for k, v in batch.items()})
+            p1, opt.init(p1), {k: v.to(where) for k, v in b.items()})
         counts = ops.launch_counts()
         out[where] = (float(met["loss"]), optim.tree_map(
             lambda a, b: (a - b).cpu(), p1, p0), counts)
@@ -2368,8 +2401,8 @@ def train_check(torch, dev, card):
                     / float(e.abs().max()))
     plain = sum(v for k, v in counts.items() if k.startswith("plain_on"))
     line = {"phase": "train_check", "model": cfg.name,
-            "n_layers": cfg.n_layers, "dtype": cfg.dtype,
-            "batch": TRAIN_CHECK["batch"], "seq": TRAIN_CHECK["seq"],
+            "family": cfg.family, "n_layers": cfg.n_layers,
+            "dtype": cfg.dtype, "batch": batch, "seq": seq,
             "loss_card": loss, "loss_cpu": loss_c,
             "max_rel_update_err": worst, "tol": TRAIN_TOL_F32,
             "s": time.perf_counter() - t0,
@@ -2434,7 +2467,9 @@ def train_phase(torch, dev, card):
     counts = {}
     for name, spec in TRAIN.items():
         counts[f"train {name}"] = train_model(torch, dev, card, name, **spec)
-    counts["train_check"] = train_check(torch, dev, card)
+    for name, spec in TRAIN_CHECK.items():
+        counts[f"train_check {name}"] = train_check(torch, dev, card, name,
+                                                    **spec)
     counts["train_launcher"] = train_launcher(torch, card)
     return counts
 
@@ -2464,8 +2499,7 @@ def main() -> int:
                             "ssd.cu", "attention_cached.cu",
                             "flash_attention_bwd.cu"])
     emit({"phase": "build", "s": time.perf_counter() - t0,
-          "ptxas": {s: [ln.strip() for ln in r.splitlines()
-                        if "registers" in ln or "spill" in ln]
+          "ptxas": {s: _build.ptxas_summary(r)
                     for s, r in reports.items()}})
 
     kres = kernel_phase(torch, dev, card)
@@ -2519,6 +2553,10 @@ def main() -> int:
         if name == "flash_attention_bwd":
             entry.update({kk: kres[name][kk] for kk in (
                 "shape", "graph_ms", "library_device_ms")})
+            entry["by_shape"] = [
+                {kk: r[kk] for kk in ("case", "shape", "causal", *keys,
+                                      "library_device_ms", "graph_ms")}
+                for r in kres[name]["by_shape"]]
         if name == "flash_attention":   # zamba2-7b's D = 112, FLASH_CASES
             entry["by_shape"] = [
                 {"case": k, "shape": kres[k]["shape"],

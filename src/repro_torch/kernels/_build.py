@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -69,6 +70,45 @@ def build(sources: Sequence[str]) -> Dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return reports
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<arg>`` of a mangled kernel symbol: the last identifier of its
+    (possibly nested, length-prefixed) name and its first template argument
+    (an int, or ``bf16`` / ``f32``)."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = ""
+    while True:
+        m = re.match(r"\d+", mangled[pos:])
+        if m is None:
+            break
+        start = pos + m.end()
+        pos = start + int(m.group())
+        name = mangled[start:pos]
+    if not name:
+        return mangled
+    t = re.match(r"I(?:Li(\d+)E|(f)E|13__nv_(bfloat16))", mangled[pos:])
+    if t is None:
+        return name
+    return f"{name}<{t.group(1) or ('f32' if t.group(2) else 'bf16')}>"
+
+
+def ptxas_summary(report: str) -> List[str]:
+    """One line per kernel of a ``-Xptxas -v`` report: its name (and
+    template argument), registers and spills."""
+    out: List[str] = []
+    name, parts = None, []
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            if name:
+                out.append(f"{name}: " + "; ".join(parts))
+            name, parts = _kernel_name(m.group(1)), []
+        elif name and ("registers" in ln or "spill" in ln):
+            parts.append(ln.replace("ptxas info    :", "").strip())
+    if name:
+        out.append(f"{name}: " + "; ".join(parts))
+    return out
 
 
 def load(source: str) -> ctypes.CDLL:

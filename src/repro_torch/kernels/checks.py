@@ -67,11 +67,16 @@ FLASH_TOL_BF16 = 1e-2
 
 # flash attention's backward, tag: (B, H, Hkv, Sq, Sk, D, causal, window,
 # prefix): granite-3-2b's training shape (GQA 32 / 8, causal, S = 1024),
-# hubert-xlarge's (16 / 16 heads of 80, bidirectional), a window, a prefix,
-# queries at the tail of more keys, D = 112 and 128 with GQA, and rows
-# before the first key (Sq > Sk, causal: no visible key, gradient 0)
+# hubert-xlarge's (16 / 16 heads of 80, bidirectional), pixtral-12b's as
+# the smoke trains it (32 / 8 heads of 160, 4 rows of 1024 image patches
+# and 1024 tokens), nemotron-4-340b's heads (96 / 8 of 192) at 2 rows of
+# 512, a window, a prefix, queries at the tail of more keys, D = 112 and
+# 128 with GQA, and rows before the first key (Sq > Sk, causal: no visible
+# key, gradient 0)
 BWD_CASES = {"granite_train": (8, 32, 8, 1024, 1024, 64, True, 0, 0),
              "hubert_train": (4, 16, 16, 512, 512, 80, False, 0, 0),
+             "pixtral_train": (4, 32, 8, 2048, 2048, 160, True, 0, 0),
+             "nemotron_train": (2, 96, 8, 512, 512, 192, True, 0, 0),
              "window": (2, 4, 2, 300, 300, 64, True, 100, 0),
              "prefix": (2, 4, 4, 200, 200, 64, True, 0, 70),
              "tail": (2, 4, 2, 70, 200, 64, True, 0, 0),

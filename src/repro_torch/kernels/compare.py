@@ -36,13 +36,17 @@ kernel (and SDPA beside flash and ``attention_cached``) two ways:
 - ``device_ms``: 25 calls back to back between two events, the median of
   three such runs, per call: the card's time, the host's launch work
   overlapped with it.
-- ``graph_ms`` (``attention_cached`` and its SDPA): one call captured in
-  a CUDA graph and replayed, the card's time with no host work.
+- ``graph_ms`` (``attention_cached`` and its SDPA, flash's backward): one
+  call captured in a CUDA graph and replayed, the card's time with no host
+  work.  (SDPA's backward is autograd of a forward made on the default
+  stream, which a capture on a side stream refuses.)
 
 ``--only`` builds and times the named groups alone (``flash``, ``ssd``,
 ``wkv6``, ``estep``: both E-steps, ``cached``, ``bwd``: flash's backward
-at granite-3-2b's training shape); a tree from before ``attention_cached``
-or the backward needs ``--only`` without ``cached`` or ``bwd``.  Prints
+at the training shapes ``BWD_TIMED``, each that the tree's
+``checks.BWD_CASES`` and head dims hold, with SDPA's backward beside it);
+a tree from before ``attention_cached`` or the backward needs ``--only``
+without ``cached`` or ``bwd``.  Prints
 one JSON object per version and round, then a summary; writes both to
 ``--out``.
 ``--sweep-estep`` times every launch plan of the E-step kernel at the main
@@ -70,6 +74,10 @@ SSD_MAIN = (64, 112, 512, 64, 64)       # Bt, H, T, N, P; the model's chunk
 SSD_CHUNK = 256
 WKV6_MAIN = (64, 40, 512, 64)           # B, H, T, Dh; the model's chunk
 WKV6_CHUNK = 64
+# flash's backward: the training shapes of kernels.checks.BWD_CASES timed
+# (granite-3-2b, hubert-xlarge, pixtral-12b, nemotron-4-340b's heads)
+BWD_TIMED = ("granite_train", "hubert_train", "pixtral_train",
+             "nemotron_train")
 
 
 def single_call_ms(torch, fn) -> float:
@@ -139,11 +147,13 @@ def child(label: str, only: str = "") -> dict:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     reports = _build.build([GROUPS[grp] for grp in groups])
+    # an older tree's builder has no summary: its raw lines
+    summary = getattr(_build, "ptxas_summary", lambda rep: [
+        ln.strip() for ln in rep.splitlines()
+        if "registers" in ln or "spill" in ln])
     res = {"version": label, "tree": str(Path(_build.CSRC).parents[3]),
            "build_s": time.perf_counter() - t0,
-           "ptxas": {src: [ln.strip() for ln in rep.splitlines()
-                           if "registers" in ln or "spill" in ln]
-                     for src, rep in reports.items()}}
+           "ptxas": {src: summary(rep) for src, rep in reports.items()}}
     # each group draws its inputs from its own seed, whatever runs before
     g = torch.Generator(device=dev)
     if "flash" in groups:
@@ -241,28 +251,46 @@ def child(label: str, only: str = "") -> dict:
                 "library": {**_times(torch, lib),
                             "graph_ms": graph_ms(torch, lib)}}
     if "bwd" in groups:
-        # flash attention's backward at granite-3-2b's training shape, on
-        # the forward's o and lse (older trees have no backward)
+        # flash attention's backward on the forward's o and lse, beside
+        # SDPA's backward (K and V repeated over the group); older trees
+        # have no backward, or fewer head dims
         from repro_torch.kernels import flash_attention_bwd as FAB
-        g.manual_seed(0)
-        B, H, Hkv, Sq, Sk, D, causal, _, _ = checks.BWD_CASES[
-            "granite_train"]
-        q, k, v, do = checks.bwd_inputs(g, dev, B, H, Hkv, Sq, Sk, D,
-                                        torch.bfloat16)
-        o, lse = FA.flash_attention(q, k, v, causal=causal, return_lse=True)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        for tag in BWD_TIMED:
+            case = checks.BWD_CASES.get(tag)
+            if case is None or case[5] not in FAB.HEAD_DIMS:
+                continue
+            g.manual_seed(0)
+            B, H, Hkv, Sq, Sk, D, causal, _, _ = case
+            q, k, v, do = checks.bwd_inputs(g, dev, B, H, Hkv, Sq, Sk, D,
+                                            torch.bfloat16)
+            o, lse = FA.flash_attention(q, k, v, causal=causal,
+                                        return_lse=True)
+            G = H // Hkv
+            qs, ks, vs = (t.detach().requires_grad_() for t in (
+                q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)))
+            out = sdpa(qs, ks, vs, is_causal=causal)
 
-        def call():
-            return FAB.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
-        exp = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
-        res["flash_attention_bwd"] = {
-            "max_abs_err": max(float((a.float() - e.float()).abs().max())
-                               for a, e in zip(call(), exp)),
-            **_times(torch, call), "graph_ms": graph_ms(torch, call)}
+            def call():
+                return FAB.flash_attention_bwd(q, k, v, o, lse, do,
+                                               causal=causal)
+
+            def lib():
+                return torch.autograd.grad(out, (qs, ks, vs), do,
+                                           retain_graph=True)
+            exp = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal)
+            res[f"flash_attention_bwd/{tag}"] = {
+                "max_abs_err": max(float((a.float() - e.float()).abs().max())
+                                   for a, e in zip(call(), exp)),
+                **_times(torch, call), "graph_ms": graph_ms(torch, call),
+                "library": _times(torch, lib)}
+            del q, k, v, do, o, lse, qs, ks, vs, out, exp
     return res
 
 
 # text edits that time one part of a kernel alone (their outputs are wrong
-# by design): name: (the csrc source edited, [(line, replacement), ...])
+# by design), or a variant of it: name: (the csrc source edited, [(line,
+# replacement), ...])
 ABLATIONS = {
     # flash's key-tile loop (and the variants that share it): the copies
     # and barriers alone, or the products and softmax on stale tiles
@@ -287,6 +315,12 @@ ABLATIONS = {
          "      uint32_t sh[DP / 16][4]")]),
     "wkv6_no_copies": ("wkv6.cu", [("    if (c + 1 < nc) load(c + 1);\n",
                                     "    if (c + 1 < 1) load(c + 1);\n")]),
+    # the bf16 flash backward's dK/dV warps taking 16 queries at a time at
+    # every head dim, or 64 up to D = 64; right outputs
+    "bwd_q_step_16": ("flash_attention_bwd.cu", [
+        ("return D <= 64 ? 16 : D <= 128 ? 32 : 16;", "return 16;")]),
+    "bwd_q_step_64": ("flash_attention_bwd.cu", [
+        ("return D <= 64 ? 16 :", "return D <= 64 ? 64 :")]),
     # the E-step kernel without the copies past the first chunks, or
     # without its sums
     "estep_no_copies": ("gmm_estep.cu", [
@@ -480,6 +514,29 @@ def sweep_cached_splits(out: Path) -> None:
                 r for r in rows if r["picked"])}), flush=True)
 
 
+def summarize(rows, order) -> dict:
+    """Per version and kernel, each time of every round (the kernel's and,
+    as ``library_*``, its yardstick's), over the kernels its rows hold."""
+    out = {}
+    for name in order:
+        kernels = {}
+        for r in rows:
+            if r["version"] != name:
+                continue
+            for k, v in r.items():
+                if not (isinstance(v, dict) and "device_ms" in v):
+                    continue
+                times = kernels.setdefault(k, {})
+                for m in ("single_ms", "device_ms", "graph_ms"):
+                    if m in v:
+                        times.setdefault(m, []).append(v[m])
+                    if m in v.get("library", {}):
+                        times.setdefault(f"library_{m}", []).append(
+                            v["library"][m])
+        out[name] = kernels
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", action="append", default=[])
@@ -529,27 +586,7 @@ def main() -> int:
                 rows.append(row)
                 print(json.dumps(row), flush=True)
                 f.write(json.dumps(row) + "\n")
-        summary = {"card": card, "summary": {
-            name: {k: {"single_ms": [r[k]["single_ms"] for r in rows
-                                     if r["version"] == name],
-                       "device_ms": [r[k]["device_ms"] for r in rows
-                                     if r["version"] == name],
-                       **({"graph_ms": [r[k]["graph_ms"] for r in rows
-                                        if r["version"] == name],
-                           "library_graph_ms": [
-                               r[k]["library"]["graph_ms"] for r in rows
-                               if r["version"] == name]}
-                          if "graph_ms" in v else {}),
-                       **({"library_device_ms": [
-                           r[k]["library"]["device_ms"] for r in rows
-                           if r["version"] == name],
-                           "library_single_ms": [
-                           r[k]["library"]["single_ms"] for r in rows
-                           if r["version"] == name]}
-                          if "library" in rows[0][k] else {})}
-                   for k, v in rows[0].items()
-                   if isinstance(v, dict) and "device_ms" in v}
-            for name in order}}
+        summary = {"card": card, "summary": summarize(rows, order)}
         print(json.dumps(summary), flush=True)
         f.write(json.dumps(summary) + "\n")
     return 0

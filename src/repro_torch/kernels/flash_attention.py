@@ -97,13 +97,20 @@ def tile_needs_mask(tile: int, q_block: int, Sq: int, Sk: int,
                 or (window > 0 and ql - k0 >= window))
 
 
-def _check_aligned(name: str, t: torch.Tensor) -> None:
-    """The bf16 kernel copies rows in 16-byte pieces: the base pointer and
-    every batch, head and row stride must be a multiple of 16 bytes.
-    Another layout raises; it is never copied quietly."""
+def copyable(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernels (this one and the backward) can copy
+    ``t``'s rows in 16-byte pieces: the base pointer and every batch, head
+    and row stride a multiple of 16 bytes."""
     st = t.stride()
-    if t.data_ptr() % 16 or any(st[i] % 8 for i in range(3)
-                                if t.shape[i] > 1):
+    return t.data_ptr() % 16 == 0 and all(
+        st[i] % 8 == 0 for i in range(3) if t.shape[i] > 1)
+
+
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """Another layout than ``copyable``'s raises; it is never copied
+    quietly."""
+    st = t.stride()
+    if not copyable(t):
         raise ValueError(f"flash_attention: {name} needs a 16-byte aligned "
                          f"base and strides, got pointer {t.data_ptr():#x} "
                          f"strides {st}")

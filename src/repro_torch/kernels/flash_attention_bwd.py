@@ -5,8 +5,10 @@ No TPU kernel answers to it: the reference differentiates its XLA
 attention by autodiff.  ``FlashAttention.forward`` launches the flash
 forward with its row logsumexp and saves q, k, v, o and lse;
 ``backward`` launches this kernel, which recomputes P tile by tile
-(FlashAttention-2).  Same masks and layouts as the forward; head dims up
-to 128.  See the note at the top of the ``.cu`` file for the design.
+(FlashAttention-2): bf16 on the tensor cores, f32 on the CUDA cores.
+Same masks, layouts and head dims as the forward.  See the note at the
+top of the ``.cu`` file for the design; ``piece_visibility`` states the
+rule by which its warps skip pieces of a tile or test their pairs.
 
 Takes CUDA tensors only; on the CPU, autograd differentiates
 ``ref.attention_ref`` and ``ref.attention_bwd_ref`` states the formulas.
@@ -15,7 +17,7 @@ Takes CUDA tensors only; on the CPU, autograd differentiates
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -24,9 +26,7 @@ from repro_torch.kernels import flash_attention as _fa
 
 _SOURCE = "flash_attention_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 80, 112, 128)
-# the head dims whose backward waits (pixtral-12b, nemotron-4-340b)
-WAITING_ITEM = "ROADMAP item 13"
+HEAD_DIMS = _fa.HEAD_DIMS
 
 LAUNCHES: Dict[str, int] = {"flash_attention_bwd": 0}
 _FN = None
@@ -43,14 +43,31 @@ def _launch_fn():
     return _FN
 
 
-def check_head_dim(D: int) -> None:
-    """Raise for a head dim without a backward kernel (160 and 192 wait
-    for ``WAITING_ITEM``); never a fallback to the plain version."""
-    if D not in HEAD_DIMS:
-        raise ValueError(
-            f"flash_attention_bwd: head_dim {D} has no backward kernel yet "
-            f"(the wide heads of pixtral-12b and nemotron-4-340b wait for "
-            f"{WAITING_ITEM}); head dims {HEAD_DIMS}")
+def piece_visibility(qa: int, qb: int, ka: int, kb: int, Sq: int, Sk: int,
+                     causal: bool, window: int,
+                     prefix: int) -> Tuple[bool, bool]:
+    """(some pair visible, every pair visible) for query rows ``qa`` …
+    ``qb`` and keys ``ka`` … ``kb``, in the mask of ``ref.attention_mask``
+    (rows past Sq and keys past Sk see nothing): the rule by which a warp
+    of the bf16 kernels skips a piece of its tile or tests its pairs
+    (``some_visible`` / ``all_visible`` in ``csrc/flash_attention_bwd.cu``).
+
+    Keys below ``prefix`` are seen by every row; otherwise a pair is seen
+    when ``rel = q_pos − k`` (``q_pos = i + Sk − Sq``) is ≥ 0 if causal
+    and < ``window`` if ``window > 0``, and over the piece ``rel`` spans
+    ``[qa + off − kb, qb + off − ka]``.
+    """
+    off = Sk - Sq
+    some = False
+    qc, kc = min(qb, Sq - 1), min(kb, Sk - 1)
+    if qa <= qc and ka <= kc:
+        some = ka < prefix or not (
+            (causal and qc + off - ka < 0)
+            or (window > 0 and qa + off - kc >= window))
+    every = qb < Sq and kb < Sk and (kb < prefix or not (
+        (causal and qa + off - kb < 0)
+        or (window > 0 and qb + off - max(ka, prefix) >= window)))
+    return some, every
 
 
 def _grad_like(t: torch.Tensor) -> torch.Tensor:
@@ -71,14 +88,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, H, Sq) f32.  Each gradient is in its input's dtype, as a (B, heads,
     S, D) view of a (B, S, heads, D) tensor.
 
-    q, k, v, o and do take any strides whose last dimension is contiguous.
-    A ``do`` whose last dimension is not contiguous is copied to a
-    contiguous tensor first, on every such call.  Head dims 160 and 192
-    raise (``WAITING_ITEM``).
+    q, k, v, o and do take any strides whose last dimension is contiguous
+    (bf16: with 16-byte aligned bases and strides; q, k, v and o that are
+    not raise).  A ``do`` that the kernel cannot read as it is (autograd
+    makes it, not the caller) is copied to a contiguous tensor first, on
+    every such call.
     """
     D = q.shape[-1]
-    check_head_dim(D)
-    if do.dim() == 4 and do.stride(-1) != 1:
+    if do.dim() == 4 and (do.stride(-1) != 1 or (
+            do.dtype == torch.bfloat16 and not _fa.copyable(do))):
         do = do.contiguous()
     dev, dt = q.device, q.dtype
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
@@ -92,6 +110,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention_bwd: {name} must be 4-D with "
                              f"a contiguous last dim, got {tuple(t.shape)} "
                              f"strides {t.stride()}")
+        if dt == torch.bfloat16 and not _fa.copyable(t):
+            raise ValueError(f"flash_attention_bwd: {name} needs a 16-byte "
+                             f"aligned base and strides, got pointer "
+                             f"{t.data_ptr():#x} strides {t.stride()}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head_dim {D} not in "
+                         f"{HEAD_DIMS}")
     B, H, Sq, _ = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     if k.shape != (B, Hkv, Sk, D) or v.shape != k.shape \
@@ -128,7 +153,6 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, prefix: int):
-        check_head_dim(q.shape[-1])   # before the forward, not in backward
         o, lse = _fa.flash_attention(q, k, v, causal=causal, window=window,
                                      prefix=prefix, return_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)

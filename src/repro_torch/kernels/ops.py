@@ -6,9 +6,10 @@ kernel (or the wrapper raises), a CPU tensor takes the plain version in
 
 Gradients: on the CPU autograd differentiates the plain versions.  On the
 card ``attention`` takes ``FlashAttention`` (the forward kernel, then the
-hand-written backward) when grad is on and an input requires it; ``wkv6``
-and ``ssd`` have no backward kernel yet and raise, naming the ROADMAP item
-that waits for them (``refuse_backward``).
+hand-written backward) when grad is on and an input requires it, at every
+head dim of the forward; ``wkv6`` and ``ssd`` have no backward kernel yet
+and raise, naming the ROADMAP item that waits for them
+(``refuse_backward``).
 """
 from __future__ import annotations
 
@@ -27,6 +28,9 @@ from repro_torch.kernels import wkv6 as _wkv6
 __all__ = ["gmm_estep", "gmm_estep_fused", "attention", "attention_cached",
            "wkv6", "ssd", "launch_counts", "reset_launch_counts"]
 
+# the ROADMAP item that the backward kernels of wkv6 and ssd wait for
+WAITING_ITEM = "ROADMAP item 13"
+
 _KERNEL_COUNTS = (_ge.LAUNCHES, _fa.LAUNCHES, _fab.LAUNCHES, _ac.LAUNCHES,
                   _wkv6.LAUNCHES, _ssd.LAUNCHES)
 
@@ -42,7 +46,7 @@ def refuse_backward(name: str, *tensors) -> None:
     if _wants_grad(*tensors):
         raise ValueError(f"{name}: no backward kernel on the card yet (the "
                          f"training of rwkv6-3b and zamba2-7b waits for "
-                         f"{_fab.WAITING_ITEM}); run it under "
+                         f"{WAITING_ITEM}); run it under "
                          "torch.no_grad()")
 
 

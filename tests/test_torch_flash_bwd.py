@@ -6,13 +6,16 @@ kernel's query-tile rule against the mask.
 o and lse) and ``ref.attention_lse_ref`` against ``jax.vjp`` of
 ``repro.kernels.ref.attention_ref`` and the logsumexp of its masked
 scores, in f32 from numpy inputs: causal, window, prefix, GQA, queries at
-the tail of more keys, bidirectional.  Tolerance 1e-5 × each gradient's
-largest value (the two sum in their own orders; ≈ 1e-7 apart here) and
-1e-5 on the lse.  ``flash_attention.query_tile_range`` decides which
-query tiles the dK/dV block of a key tile walks
+the tail of more keys, bidirectional, and the wide heads (D = 160, 192) with
+GQA.  Tolerance 1e-5 × each gradient's largest value (the two sum in
+their own orders; ≈ 1e-7 apart here) and 1e-5 on the lse.
+``flash_attention.query_tile_range`` decides which query tiles the dK/dV
+block of a key tile walks, and ``flash_attention_bwd.piece_visibility``
+which pieces of a tile a warp skips or tests pair by pair
 (``csrc/flash_attention_bwd.cu`` states the same arithmetic): over a grid
 of small shapes and masks, every query tile holding a row that sees a key
-of the tile is walked and no other.  Exact: integer rules.
+of the tile is walked and no other, and a piece's two answers are those of
+the mask.  Exact: integer rules.
 """
 import jax
 import jax.numpy as jnp
@@ -21,9 +24,9 @@ import pytest
 import torch
 
 from repro.kernels import ref as JR
-from repro_torch.kernels import flash_attention_bwd as FAB
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import BKV, BQ, query_tile_range
+from repro_torch.kernels.flash_attention_bwd import piece_visibility
 
 CASES = [
     # B, H, Hkv, Sq, Sk, D, causal, window, prefix
@@ -34,6 +37,8 @@ CASES = [
     (1, 4, 1, 8, 24, 32, True, 0, 0),        # MQA, queries at the tail
     (2, 2, 2, 20, 20, 16, False, 0, 0),      # bidirectional
     (1, 2, 2, 20, 20, 16, False, 7, 0),      # bidirectional window
+    (1, 4, 1, 20, 20, 160, True, 0, 0),      # pixtral-12b's head dim, GQA
+    (1, 4, 2, 18, 22, 192, True, 0, 0),      # nemotron-4-340b's, GQA, tail
 ]
 
 
@@ -104,15 +109,6 @@ def test_rows_with_no_visible_key_get_no_gradient():
     torch.testing.assert_close(dv, dv2)
 
 
-def test_backward_refuses_the_wide_heads_naming_their_item():
-    """D = 160 and 192 have no backward kernel yet: the wrapper raises
-    before any launch, naming ROADMAP item 13 (never a plain fallback)."""
-    for D in (160, 192):
-        x = torch.zeros(1, 2, 8, D)
-        with pytest.raises(ValueError, match="ROADMAP item 13"):
-            FAB.flash_attention_bwd(x, x, x, x, torch.zeros(1, 2, 8), x)
-
-
 SEQS = [(1, 1), (5, 5), (64, 64), (65, 65), (130, 130), (200, 200),
         (1, 515), (70, 515), (64, 200), (200, 64)]
 MASKS = [(c, w, p) for c in (True, False) for w in (0, 1, 10, 64, 100)
@@ -132,3 +128,33 @@ def test_query_tile_range_walks_exactly_the_tiles_that_see_a_key(Sq, Sk):
                     if sees[qt * BQ:(qt + 1) * BQ].any()]
             assert list(range(lo, hi)) == want, (Sq, Sk, kt, causal,
                                                  window, prefix)
+
+
+# (rows, keys) of the pieces the bf16 warps classify: a dK/dV warp's 16
+# keys against its query steps of 64, 32 or 16, a dQ warp's 16 rows
+# against a key tile of 64
+PIECES = [(64, 16), (32, 16), (16, 16), (16, 64)]
+
+
+@pytest.mark.parametrize("Sq,Sk", SEQS)
+def test_piece_visibility_is_the_mask_of_each_piece(Sq, Sk):
+    """Every piece of every tile: some pair visible exactly when the mask
+    has one there (rows past Sq and keys past Sk see nothing), every pair
+    exactly when the whole piece lies inside (Sq, Sk) and the mask holds
+    throughout."""
+    for causal, window, prefix in MASKS:
+        mask = ref.attention_mask(Sq, Sk, causal=causal, window=window,
+                                  prefix=prefix).numpy()
+        for rows, keys in PIECES:
+            nq, nk = -(-Sq // rows), -(-Sk // keys)
+            full = np.zeros((nq * rows, nk * keys), dtype=bool)
+            full[:Sq, :Sk] = mask
+            blocks = full.reshape(nq, rows, nk, keys)
+            some, every = blocks.any((1, 3)), blocks.all((1, 3))
+            for i in range(nq):
+                for j in range(nk):
+                    got = piece_visibility(i * rows, (i + 1) * rows - 1,
+                                           j * keys, (j + 1) * keys - 1, Sq,
+                                           Sk, causal, window, prefix)
+                    assert got == (some[i, j], every[i, j]), (
+                        Sq, Sk, causal, window, prefix, rows, keys, i, j)

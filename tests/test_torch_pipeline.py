@@ -130,14 +130,12 @@ def test_session_options_filter_resample_and_normalize(features):
 def test_unported_options_name_their_roadmap_item():
     """Mesh execution still raises naming its ROADMAP item; so do the
     gradients that have no backward kernel on the card yet (``wkv6`` and
-    ``ssd`` with grad, flash's backward at head dims 160 and 192: item
-    13), checked before any launch; the options of items 4 and 5
-    (ingest, the round-program cache, resilience) now run a round on the
-    CPU."""
+    ``ssd`` with grad: item 13), checked before any launch; the options
+    of items 4 and 5 (ingest, the round-program cache, resilience) now
+    run a round on the CPU."""
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
         A.FedSession(n_classes=2, shards=2).run(
             [(torch.zeros(4, 3), torch.zeros(4).long())], device="cpu")
-    from repro_torch.kernels import flash_attention_bwd as FAB
     from repro_torch.kernels import ops
     x = torch.zeros(1, 2, 4, 8, requires_grad=True)
     for name in ("wkv6", "ssd"):
@@ -146,9 +144,6 @@ def test_unported_options_name_their_roadmap_item():
         ops.refuse_backward(name, x.detach(), None)   # no gradient wanted
         with torch.no_grad():
             ops.refuse_backward(name, x, None)
-    for head_dim in (160, 192):
-        with pytest.raises(ValueError, match="ROADMAP item 13"):
-            FAB.check_head_dim(head_dim)
     from repro_torch.fl.ingest import IngestConfig
     from repro_torch.fl.resilience import ResilienceConfig
     from repro_torch.launch.aot_cache import ProgramCache
