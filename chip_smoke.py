@@ -47,9 +47,14 @@ against its plain version and autograd, and timed beside SDPA's
 backward); hubert-xlarge (48 layers) trains on its masked loss,
 granite-moe-3b-a800m (4 layers) with its aux loss, pixtral-12b (4
 layers) on its text loss behind a 1024-patch image prefix at head dim
-160; one f32 step each of granite-3-2b and hubert-xlarge (2 layers) on
-the card is held against the same step on the CPU; the launcher runs 20
-steps and its checkpoint restores bitwise.
+160, rwkv6-3b (all 32 layers) through ``wkv6`` and its hand-written
+backward and zamba2-7b (12 of 81 layers) through ``ssd`` and its
+backward and the flash backward at D = 112 (both backwards held before at
+``kernels.checks.RECUR_BWD_CASES``), their losses falling; one f32 step
+each of granite-3-2b, hubert-xlarge, rwkv6-3b, granite-moe-3b-a800m
+(dropless, with its aux loss), pixtral-12b (2 layers) and zamba2-7b (6
+layers) on the card is held against the same step on the CPU; the
+launcher runs 20 steps and its checkpoint restores bitwise.
 
 Prints one JSON object per line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
@@ -133,24 +138,32 @@ def profiled(torch, fn):
     return prof.key_averages(), wall_ms
 
 
-def device_profile(torch, fn, events=None) -> dict:
+def device_profile(torch, fn, events=None, groups=None) -> dict:
     """Wall time of one call of ``fn`` under torch.profiler, the device
     time of the kernels it ran (top 8 by name) and the device's idle
     share.  The profiler's own cost inflates the wall time.  ``events``,
-    a ``profiled`` result, reads that call instead of making one."""
+    a ``profiled`` result, reads that call instead of making one.
+    ``groups``, {label: (name substrings)}: each label's device time (the
+    kernels whose name holds one of its substrings) and share of busy."""
     prof, wall_ms = events if events is not None else profiled(torch, fn)
     kernels = {}
     for e in prof:
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             ms = float(getattr(e, "self_device_time_total", 0.0)) / 1e3
             if ms > 0:
-                kernels[e.key[:160]] = kernels.get(e.key[:160], 0.0) + ms
+                kernels[e.key] = kernels.get(e.key, 0.0) + ms
     busy = sum(kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall_ms,
-            "device_busy_ms": busy if kernels else None,
-            "idle_share": 1.0 - busy / wall_ms if kernels else None,
-            "top_kernels_ms": top}
+    top = sorted(((k[:160], v) for k, v in kernels.items()),
+                 key=lambda kv: -kv[1])[:8]
+    out = {"wall_ms": wall_ms,
+           "device_busy_ms": busy if kernels else None,
+           "idle_share": 1.0 - busy / wall_ms if kernels else None,
+           "top_kernels_ms": top}
+    for label, subs in (groups or {}).items():
+        ms = sum(v for k, v in kernels.items() if any(x in k for x in subs))
+        out[f"{label}_ms"] = ms
+        out[f"{label}_share_of_busy"] = ms / busy if busy else None
+    return out
 
 
 def check_close(torch, name, got, exp, tol, **shape) -> float:
@@ -340,6 +353,7 @@ def kernel_phase(torch, dev, card):
     recurrent_checks(torch, dev, g, res)
     cached_checks(torch, dev, g, res)
     bwd_checks(torch, dev, g, res)
+    recur_bwd_checks(torch, dev, g, res)
     moe_layer_checks(torch, card)
 
     for name, r in res.items():
@@ -433,8 +447,9 @@ def bwd_checks(torch, dev, g, res):
     in f32 also against autograd of ``ref.attention_ref`` where every row
     sees a key (the plain version gives a row with none the mean of v), dq
     exactly 0 on rows with no key.  Timed in bf16 at the training shapes
-    (``compare.BWD_TIMED``: granite-3-2b, hubert-xlarge, pixtral-12b and
-    nemotron-4-340b's heads) beside the plain version and SDPA's backward
+    (``compare.BWD_TIMED``: granite-3-2b, hubert-xlarge, pixtral-12b,
+    nemotron-4-340b's heads and zamba2-7b's shared block) beside the plain
+    version and SDPA's backward
     (autograd of ``scaled_dot_product_attention``, K and V repeated over
     the group: a yardstick, never the path)."""
     from repro_torch.kernels import checks, ref
@@ -514,6 +529,117 @@ def bwd_checks(torch, dev, g, res):
         del q, k, v, do, o, lse, got, exp
     res["flash_attention_bwd"] = dict(shapes[0], by_shape=shapes)
     emit({"phase": "bwd_checks", "s": time.perf_counter() - t_phase})
+
+
+def few_ms(torch, fn, n: int = 3) -> float:
+    """The median of ``n`` event pairs, each around one call, after one
+    call to warm up: for plain versions that take a second a call."""
+    fn()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[n // 2]
+
+
+def recur_bwd_work(kernel, dims, dtype_bytes):
+    """The bytes that the wkv6 / ssd backward must move (each input read
+    once, each output written once; no final-state gradient, as training
+    passes none) and the products of their chunked form (chunk 64) on the
+    bf16 tensor cores: the function's bound.  wkv6: per step and (b, h)
+    about 10 Dh (C + Dh) (the forward's 4 Dh (C + Dh), twice over and the
+    recompute); ssd: C Bᵀ and its gradient for all heads, and per head the
+    masked products and the state passes, twice over."""
+    e = dtype_bytes
+    if kernel == "wkv6":
+        B, H, T, Dh = dims
+        n = B * H * T * Dh
+        return dict(flops=10.0 * n * (64 + Dh),
+                    # r, k, v, do read and dr, dk, dv written; lw read and
+                    # dlw written (f32); u, du; s0 read, dS0 written
+                    bytes=7.0 * e * n + 2 * 4.0 * n + 2 * 4.0 * H * Dh
+                    + 2 * 4.0 * B * H * Dh * Dh,
+                    peak=BF16_FLOPS)
+    Bt, H, T, N, P = dims
+    n = Bt * H * T * P
+    return dict(flops=3 * 2.0 * Bt * T * 64 * N
+                + Bt * H * T * (4 * 2.0 * 64 * P + 4 * 2.0 * N * P),
+                # x, dy read and dx written; a read, da written (f32); B, C
+                # read, dB, dC written; s0 read, dS0 written
+                bytes=3.0 * e * n + 2 * 4.0 * Bt * H * T
+                + 4.0 * e * Bt * T * N + 2 * 4.0 * Bt * H * N * P,
+                peak=BF16_FLOPS)
+
+
+def recur_bwd_checks(torch, dev, g, res):
+    """The wkv6 and ssd backward kernels at ``kernels.checks.
+    RECUR_BWD_CASES`` (rwkv6-3b's and zamba2-7b's training shapes, then
+    the other head and state sizes, odd T, lw at −8, with s0 and dS_T
+    nonzero), f32 and bf16: every gradient against the plain version
+    (``ref.wkv6_bwd_ref`` / ``ref.ssd_bwd_ref``) and against autograd of
+    the plain forward within ``RECUR_BWD_TOL_*`` × its max, and two calls
+    bitwise equal.  Timed in bf16 at the training shapes; the plain
+    version, a Python loop over T, by ``few_ms``; no single torch call
+    computes either backward."""
+    from repro_torch.kernels import checks, ref
+    from repro_torch.kernels import ssd_bwd as SSDB
+    from repro_torch.kernels import wkv6_bwd as WKVB
+    kinds = {"wkv6": (WKVB.wkv6_bwd, ref.wkv6_bwd_ref, ref.wkv6_ref,
+                      ("dr", "dk", "dv", "dlw", "du", "dS0"), "B,H,T,Dh"),
+             "ssd": (SSDB.ssd_bwd, ref.ssd_bwd_ref, ref.ssd_ref,
+                     ("dx", "da_log", "dB", "dC", "dS0"), "Bt,H,T,N,P")}
+    t_phase = time.perf_counter()
+    for tag, (kernel, dims, chunk, scale, fill) in \
+            checks.RECUR_BWD_CASES.items():
+        fn, plain, fwd, names, dnames = kinds[kernel]
+        for dt in (torch.float32, torch.bfloat16):
+            args, dout, dS = checks.recur_bwd_inputs(g, dev, kernel, dims,
+                                                     dt, scale, fill)
+            shape = dict(case=tag, **dict(zip(dnames.split(","), dims)),
+                         dtype=str(dt), lw_fill=fill,
+                         final_state_grad=dS is not None)
+            tol = (checks.RECUR_BWD_TOL_BF16 if dt == torch.bfloat16
+                   else checks.RECUR_BWD_TOL_F32)
+            got = fn(*args, dout, dS)
+            again = fn(*args, dout, dS)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{kernel}_bwd {tag} {dt}: two calls "
+                                     "differ")
+            exp = plain(*args, dout, dS)
+            err = max(check_grad(torch, f"{kernel}_bwd", a, e, tol,
+                                 output=nm, against=f"{kernel}_bwd_ref",
+                                 **shape)
+                      for nm, a, e in zip(names, got, exp))
+            del exp
+            leaves = [a.detach().clone().requires_grad_() for a in args]
+            out, S = fwd(*leaves, chunk=chunk)
+            torch.autograd.backward(
+                (out, S) if dS is not None else out,
+                (dout, dS) if dS is not None else dout)
+            for nm, a, leaf in zip(names, got, leaves):
+                check_grad(torch, f"{kernel}_bwd", a, leaf.grad, tol,
+                           output=nm, against=f"autograd {kernel}_ref",
+                           chunk=chunk, **shape)
+            del leaves, out, S
+            if not (tag.endswith("_train") and dt == torch.bfloat16):
+                continue
+
+            def call():
+                return fn(*args, dout, dS)
+            res[f"{kernel}_bwd"] = dict(
+                case=tag, shape=list(dims), max_abs_err=err,
+                ms=time_ms(torch, call), device_ms=device_ms(torch, call),
+                graph_ms=graph_ms(torch, call),
+                plain_ms=few_ms(torch, lambda: plain(*args, dout, dS)),
+                library_ms=None, **recur_bwd_work(kernel, dims, 2))
+        del args, dout, dS, got, again
+    emit({"phase": "recur_bwd_checks", "s": time.perf_counter() - t_phase})
 
 
 def moe_layer_checks(torch, card):
@@ -2211,19 +2337,68 @@ def slice6_paths(torch, dev, card, kept):
 TRAIN_LR = dict(peak_lr=3e-4, total_steps=200, warmup_steps=20)
 # pixtral-12b: 4 layers (≈ 0.29 B parameters a layer beside 1.34 B of
 # embeddings and head, 12 bytes a parameter with Adam: ≈ 30 GB), each row
-# 1024 stub image patches and 1024 tokens, the loss on the text alone
+# 1024 stub image patches and 1024 tokens, the loss on the text alone;
+# rwkv6-3b at full depth (2.86 B × 12 B ≈ 34 GB with Adam) through the
+# wkv6 kernel and its backward, 6 steps: its loss rises at step 3 and
+# falls below the first by step 6, through the kernels and through the
+# plain version alike (PERF.md §6, PR 22); zamba2-7b cut to 12 of 81
+# layers (two uses of the shared block, ≈ 1.4 B parameters: all 81 need
+# ≈ 81 GB with Adam) through ssd and its backward and the flash backward
+# at D = 112, causal
 TRAIN = {"granite-3-2b": dict(depth=40, batch=8, seq=1024, steps=6),
          "hubert-xlarge": dict(depth=48, batch=4, seq=512, steps=3),
          "granite-moe-3b-a800m": dict(depth=4, batch=8, seq=1024, steps=3),
-         "pixtral-12b": dict(depth=4, batch=4, seq=1024, steps=3)}
-# the whole step on the card against the CPU, at full width and 2 layers,
-# f32: granite-3-2b on 2 × 256 tokens, hubert-xlarge on 2 × 256 frames
-# (its masked loss, bidirectional D = 80); every gradient leaf (and so the
-# sgd update) within TRAIN_TOL_F32 × its max: both sides run f32 (no
-# TF32), summing in their own orders through 2 blocks and the output head
+         "pixtral-12b": dict(depth=4, batch=4, seq=1024, steps=3),
+         "rwkv6-3b": dict(depth=32, batch=8, seq=1024, steps=6),
+         "zamba2-7b": dict(depth=12, batch=4, seq=1024, steps=3)}
+# models whose loss must fall over their steps on the repeated batch (the
+# last step's below the first's)
+TRAIN_FALLS = ("granite-3-2b", "rwkv6-3b", "zamba2-7b")
+# the whole step on the card against the CPU, at full width, f32:
+# granite-3-2b on 2 × 256 tokens, hubert-xlarge on 2 × 256 frames (its
+# masked loss, bidirectional D = 80), rwkv6-3b on 2 × 256 tokens (wkv6 and
+# its backward), zamba2-7b at 6 layers (one use of the shared block) on 2
+# × 256, granite-moe-3b-a800m dropless with its aux loss on 2 × 256, and
+# pixtral-12b on 1 row of its 1024 stub image patches and 64 tokens (the
+# loss on the text alone), each at 2 layers unless said; every gradient
+# leaf (and so the sgd update) within TRAIN_TOL_F32 × its max: both sides
+# run f32 (no TF32), summing in their own orders through the blocks and
+# the output head
 TRAIN_CHECK = {"granite-3-2b": dict(depth=2, batch=2, seq=256),
-               "hubert-xlarge": dict(depth=2, batch=2, seq=256)}
+               "hubert-xlarge": dict(depth=2, batch=2, seq=256),
+               "rwkv6-3b": dict(depth=2, batch=2, seq=256),
+               "zamba2-7b": dict(depth=6, batch=2, seq=256),
+               "granite-moe-3b-a800m": dict(depth=2, batch=2, seq=256),
+               "pixtral-12b": dict(depth=2, batch=1, seq=64)}
 TRAIN_TOL_F32 = 1e-3
+# the kernels of a training step: the forward kernel and its backward
+TRAIN_KERNELS = (("flash_attention", "flash_attention_bwd"),
+                 ("wkv6", "wkv6_bwd"), ("ssd", "ssd_bwd"))
+# the profiler's names of each backward's kernels
+BWD_KERNEL_NAMES = {"flash_attention_bwd": ("dkdv_", "dq_", "rowdot_"),
+                    "wkv6_bwd": ("wkv6_bwd",), "ssd_bwd": ("ssd_bwd",)}
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """The launches that ``steps`` training steps of ``cfg`` must make:
+    each attention, wkv6 or ssd layer's forward kernel once a step, and
+    again when remat recomputes the block in the backward, and its
+    backward kernel once; zamba2's shared block once per ``attn_every``
+    Mamba2 layers."""
+    uses = {"flash_attention": 0, "wkv6": 0, "ssd": 0}
+    if cfg.family == "ssm":
+        uses["wkv6"] = cfg.n_layers
+    elif cfg.family == "hybrid":
+        uses["ssd"] = cfg.n_layers
+        uses["flash_attention"] = cfg.n_layers // cfg.attn_every
+    else:
+        uses["flash_attention"] = cfg.n_layers
+    fwd = 2 if cfg.remat else 1
+    out = {}
+    for f, b in TRAIN_KERNELS:
+        out[f] = fwd * uses[f] * steps
+        out[b] = uses[f] * steps
+    return out
 
 
 def train_batch(torch, cfg, batch, seq, g):
@@ -2299,27 +2474,30 @@ def train_model(torch, dev, card, name, depth, batch, seq, steps):
     med = statistics.median(r["s"] for r in rows[1:])
     tokens = batch * seq
     plain = sum(v for k, v in counts.items() if k.startswith("plain_on"))
+    expect = train_launches(cfg, steps)
     line = {"phase": "train", "model": cfg.name, "family": cfg.family,
             "n_layers": depth, "of_layers": get_config(name).n_layers,
             "n_params": n_params_of(params), "batch": batch, "seq": seq,
             "init_s": init_s, "steps": rows,
             "step_s_median_after_first": med, "tokens_per_s": tokens / med,
-            "peak_bytes": peak,
-            "flash_attention": counts["flash_attention"],
-            "flash_attention_bwd": counts["flash_attention_bwd"],
-            "plain_on_cuda": plain, "card": card}
+            "peak_bytes": peak, **{k: counts[k] for k in expect},
+            "expected_launches": expect, "plain_on_cuda": plain,
+            "card": card}
     losses = [r["loss"] for r in rows]
     ok = (all(math.isfinite(x) for x in losses)
-          and counts["flash_attention"] == 2 * depth * steps
-          and counts["flash_attention_bwd"] == depth * steps
+          and all(counts[k] == n for k, n in expect.items())
           and plain == 0)
     if cfg.n_experts:
         ok = ok and all(r["aux"] > 0 for r in rows)
-    if name == "granite-3-2b":
+    if name in TRAIN_FALLS:
         ok = ok and losses[-1] < losses[0]
+        bwd = {k: BWD_KERNEL_NAMES[k] for k in BWD_KERNEL_NAMES
+               if expect[k]}
+        line["profile"] = device_profile(
+            torch, lambda: step(params, state, b),
+            groups={**bwd, "backward_kernels": sum(bwd.values(), ())})
+    if name == "granite-3-2b":
         unstack = M._unstack
-        line["profile"] = device_profile(torch, lambda: step(params, state,
-                                                             b))
         turns = []
         for variant in ("select", "unbind", "select", "unbind"):
             M._unstack = select_layers if variant == "select" else unstack
@@ -2346,8 +2524,9 @@ def train_model(torch, dev, card, name, depth, batch, seq, steps):
 
 def check_batch(torch, cfg, batch, seq):
     """A batch of ``cfg``'s loss made on the host with numpy (seed 3), the
-    same on the card and on the CPU: tokens and labels for an LM, frames,
-    a mask at ``mask_prob`` and targets for the encoder."""
+    same on the card and on the CPU: tokens and labels for an LM (after
+    N(0, 1) stub image patches for a vlm), frames, a mask at
+    ``mask_prob`` and targets for the encoder."""
     import numpy as np
     rng = np.random.default_rng(3)
     if cfg.family == "encoder":
@@ -2359,15 +2538,21 @@ def check_batch(torch, cfg, batch, seq):
                 "targets": torch.from_numpy(
                     rng.integers(0, cfg.vocab_size, (batch, seq)))}
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq + 1)))
-    return {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+    out = {"tokens": ids[:, :-1], "labels": ids[:, 1:]}
+    if cfg.family == "vlm":
+        out["img"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.n_img_tokens, cfg.img_embed_dim)).astype(np.float32))
+    return out
 
 
 def train_check(torch, dev, card, name, depth, batch, seq):
     """One sgd step of ``name`` at full width and ``depth`` layers, f32, on
     the card through the kernels against the same step on the CPU through
-    the plain versions, same weights and batch: the loss and each
-    parameter's update within ``TRAIN_TOL_F32`` × its max.  Returns the
-    card step's launch counts."""
+    the plain versions, same weights and batch (MoE dropless, so that no
+    assignment near a capacity boundary can fall on one side alone): the
+    loss and each parameter's update within ``TRAIN_TOL_F32`` × its max,
+    and the MoE aux loss likewise.  Returns the card step's launch
+    counts."""
     import dataclasses
 
     from repro_torch import optim, train
@@ -2375,8 +2560,8 @@ def train_check(torch, dev, card, name, depth, batch, seq):
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(get_config(name), n_layers=depth,
-                              dtype="float32")
+    cfg = dropless(dataclasses.replace(get_config(name), n_layers=depth,
+                                       dtype="float32"))
     g = torch.Generator()
     g.manual_seed(3)
     on_cpu = M.init_params(cfg, g, device="cpu")
@@ -2392,27 +2577,30 @@ def train_check(torch, dev, card, name, depth, batch, seq):
             p1, opt.init(p1), {k: v.to(where) for k, v in b.items()})
         counts = ops.launch_counts()
         out[where] = (float(met["loss"]), optim.tree_map(
-            lambda a, b: (a - b).cpu(), p1, p0), counts)
+            lambda a, b: (a - b).cpu(), p1, p0), counts, float(met["aux"]))
         del p0, p1
-    (loss, upd, counts), (loss_c, upd_c, _) = out["cuda"], out["cpu"]
+    (loss, upd, counts, aux), (loss_c, upd_c, _, aux_c) = (out["cuda"],
+                                                           out["cpu"])
     worst = 0.0
     for a, e in zip(optim.tree_leaves(upd), optim.tree_leaves(upd_c)):
-        worst = max(worst, float((a - e).abs().max())
-                    / float(e.abs().max()))
+        err, scale = float((a - e).abs().max()), float(e.abs().max())
+        worst = max(worst, err / scale if scale else
+                    (0.0 if err == 0.0 else math.inf))
     plain = sum(v for k, v in counts.items() if k.startswith("plain_on"))
+    expect = train_launches(cfg, 1)
     line = {"phase": "train_check", "model": cfg.name,
             "family": cfg.family, "n_layers": cfg.n_layers,
             "dtype": cfg.dtype, "batch": batch, "seq": seq,
-            "loss_card": loss, "loss_cpu": loss_c,
-            "max_rel_update_err": worst, "tol": TRAIN_TOL_F32,
-            "s": time.perf_counter() - t0,
-            "flash_attention": counts["flash_attention"],
-            "flash_attention_bwd": counts["flash_attention_bwd"],
-            "plain_on_cuda": plain, "card": card}
+            "loss_card": loss, "loss_cpu": loss_c, "aux_card": aux,
+            "aux_cpu": aux_c, "max_rel_update_err": worst,
+            "tol": TRAIN_TOL_F32, "s": time.perf_counter() - t0,
+            **{k: counts[k] for k in expect}, "plain_on_cuda": plain,
+            "card": card}
     emit(line)
     if not (abs(loss - loss_c) <= TRAIN_TOL_F32 * abs(loss_c)
+            and abs(aux - aux_c) <= TRAIN_TOL_F32 * abs(aux_c)
             and worst <= TRAIN_TOL_F32 and plain == 0
-            and counts["flash_attention_bwd"] == cfg.n_layers):
+            and all(counts[k] == n for k, n in expect.items())):
         raise AssertionError(f"train_check: {line}")
     return counts
 
@@ -2461,9 +2649,9 @@ def train_launcher(torch, card):
 
 
 def train_phase(torch, dev, card):
-    """Training through the flash forward and the hand-written backward:
-    ``TRAIN``'s models, the whole-step check and the launcher.  Returns
-    each run's launch counts."""
+    """Training through the forward kernels and their hand-written
+    backwards (flash, wkv6, ssd): ``TRAIN``'s models, the whole-step
+    checks and the launcher.  Returns each run's launch counts."""
     counts = {}
     for name, spec in TRAIN.items():
         counts[f"train {name}"] = train_model(torch, dev, card, name, **spec)
@@ -2497,7 +2685,8 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = _build.build(["gmm_estep.cu", "flash_attention.cu", "wkv6.cu",
                             "ssd.cu", "attention_cached.cu",
-                            "flash_attention_bwd.cu"])
+                            "flash_attention_bwd.cu", "wkv6_bwd.cu",
+                            "ssd_bwd.cu"])
     emit({"phase": "build", "s": time.perf_counter() - t0,
           "ptxas": {s: _build.ptxas_summary(r)
                     for s, r in reports.items()}})
@@ -2534,12 +2723,16 @@ def main() -> int:
                # no TPU kernel: XLA's autodiff of _sdpa_chunked
                "flash_attention_bwd": (
                    "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-                   None)}
+                   None),
+               # no TPU kernel: XLA's autodiff of wkv6_chunked, ssd_chunked
+               "wkv6_bwd": ("src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+                            None),
+               "ssd_bwd": ("src/repro_torch/kernels/csrc/ssd_bwd.cu", None)}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms")
     kernels = []
     for name, (src, rep) in sources.items():
-        by_path = {p: c[name] for p, c in counts.items() if c[name]}
+        by_path = {p: c[name] for p, c in counts.items() if c.get(name)}
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": rep, "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
@@ -2550,6 +2743,9 @@ def main() -> int:
                                       "library_device_ms", "graph_ms",
                                       "library_graph_ms")}
                 for r in kres[name]["by_shape"]]
+        if name in ("wkv6_bwd", "ssd_bwd"):
+            entry.update({kk: kres[name][kk] for kk in (
+                "case", "shape", "graph_ms")})
         if name == "flash_attention_bwd":
             entry.update({kk: kres[name][kk] for kk in (
                 "shape", "graph_ms", "library_device_ms")})

@@ -70,13 +70,15 @@ FLASH_TOL_BF16 = 1e-2
 # hubert-xlarge's (16 / 16 heads of 80, bidirectional), pixtral-12b's as
 # the smoke trains it (32 / 8 heads of 160, 4 rows of 1024 image patches
 # and 1024 tokens), nemotron-4-340b's heads (96 / 8 of 192) at 2 rows of
-# 512, a window, a prefix, queries at the tail of more keys, D = 112 and
-# 128 with GQA, and rows before the first key (Sq > Sk, causal: no visible
-# key, gradient 0)
+# 512, zamba2-7b's shared block as the smoke trains it (32 / 32 heads of
+# 112, 4 rows of 1024), a window, a prefix, queries at the tail of more
+# keys, D = 112 and 128 with GQA, and rows before the first key (Sq > Sk,
+# causal: no visible key, gradient 0)
 BWD_CASES = {"granite_train": (8, 32, 8, 1024, 1024, 64, True, 0, 0),
              "hubert_train": (4, 16, 16, 512, 512, 80, False, 0, 0),
              "pixtral_train": (4, 32, 8, 2048, 2048, 160, True, 0, 0),
              "nemotron_train": (2, 96, 8, 512, 512, 192, True, 0, 0),
+             "zamba2_train": (4, 32, 32, 1024, 1024, 112, True, 0, 0),
              "window": (2, 4, 2, 300, 300, 64, True, 100, 0),
              "prefix": (2, 4, 4, 200, 200, 64, True, 0, 70),
              "tail": (2, 4, 2, 70, 200, 64, True, 0, 0),
@@ -207,6 +209,60 @@ def ssd_inputs(g: torch.Generator, dev, Bt, H, T, N, P, dtype=torch.float32,
         a = -0.2 * F.softplus(rnd(Bt, H, T))
     Bm, Cm = (rnd(Bt, T, N).to(dtype) for _ in range(2))
     return x, a, Bm, Cm, s0_scale * rnd(Bt, H, N, P)
+
+
+# the recurrences' backward kernels, tag: (kernel, dims, chunk, s0 and
+# dS_T scale, lw fill): rwkv6-3b's and zamba2-7b's training shapes as the
+# blocks pass them (s0 = 0 and no final-state gradient, as training
+# has), then the other head and state sizes, T that no tile of 16 divides,
+# and lw at the model's clamp, with s0 and dS_T nonzero.  ``chunk`` is the
+# plain chunked version's, for the comparison with its autograd: one that
+# divides T, and 10 at lw = −8 (the chunked VJP's masked exponents reach
+# e^{+8(C−1)}: past a chunk of 12 they overflow and make dlw NaN,
+# tests/test_torch_recurrent_bwd.py)
+RECUR_BWD_CASES = {"rwkv6_train": ("wkv6", (8, 40, 1024, 64), 64, 0.0, None),
+                   "zamba2_train": ("ssd", (4, 112, 1024, 64, 64), 256, 0.0,
+                                    None),
+                   "wkv6_T=200": ("wkv6", (2, 4, 200, 64), 40, 1.0, None),
+                   "wkv6_lw=-8": ("wkv6", (2, 4, 100, 64), 10, 1.0, -8.0),
+                   "wkv6_dh32": ("wkv6", (2, 3, 37, 32), 16, 1.0, None),
+                   "wkv6_dh16": ("wkv6", (1, 5, 50, 16), 16, 1.0, None),
+                   "wkv6_dh8": ("wkv6", (3, 2, 19, 8), 8, 1.0, None),
+                   "ssd_T=65": ("ssd", (2, 8, 65, 64, 64), 64, 1.0, None),
+                   "ssd_N32_P40": ("ssd", (2, 3, 70, 32, 40), 32, 1.0, None),
+                   "ssd_N16_P32": ("ssd", (1, 4, 33, 16, 32), 16, 1.0, None),
+                   "ssd_N4_P8": ("ssd", (2, 3, 21, 4, 8), 8, 1.0, None),
+                   "ssd_N8_P16": ("ssd", (1, 2, 1, 8, 16), 8, 1.0, None)}
+# |got − exp| ≤ tol · max |exp| per gradient.  f32: both sides sum in f32
+# in their own orders (dlw and da_log by the prefix sum against the direct
+# formula).  bf16: both compute in f32 from the same bf16 inputs and round
+# dr, dk, dv (dx, dB, dC) to bf16, one bf16 step (2^-8 relative) apart
+RECUR_BWD_TOL_F32 = 1e-3
+RECUR_BWD_TOL_BF16 = 1e-2
+
+
+def recur_bwd_inputs(g: torch.Generator, dev, kernel, dims, dtype, scale,
+                     lw_fill=None):
+    """(the forward's inputs, the output gradient, the final-state
+    gradient or None) of a ``RECUR_BWD_CASES`` case: the inputs as the
+    blocks lay them out (``model_like``), the output gradient as a
+    (·, ·, T, ·) view of a (·, T, ·, ·) tensor in ``dtype``, the final-state
+    gradient N(0, scale²) in f32, None when scale is 0."""
+    if kernel == "wkv6":
+        kw = {} if lw_fill is None else {"lw_fill": lw_fill}
+        args = wkv6_inputs(g, dev, *dims, dtype, scale, model_like=True,
+                           **kw)
+        state = args[5].shape
+    else:
+        args = ssd_inputs(g, dev, *dims, dtype, scale, model_like=True)
+        state = args[4].shape
+    x = args[0]
+    B, H, T, D = x.shape
+    dout = torch.randn(B, T, H, D, generator=g, device=dev).to(
+        dtype).transpose(1, 2)
+    dS = (scale * torch.randn(*state, generator=g, device=dev)
+          if scale else None)
+    return args, dout, dS
 
 
 def wkv6_steps(r, k, v, lw, u, s0):

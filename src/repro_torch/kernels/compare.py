@@ -3,7 +3,8 @@
     python3 src/repro_torch/kernels/compare.py --tree NAME=DIR [--tree ...]
         [--flash NAME=BASE:FILE.cu[:ABLATION] ...]
         [--ablate NAME=BASE:ABLATION[:ABLATION] ...] [--rounds 2]
-        [--only flash,ssd,wkv6,estep,cached,bwd] [--out build/compare.jsonl]
+        [--only flash,ssd,wkv6,estep,cached,bwd,wkv6_bwd,ssd_bwd]
+        [--out build/compare.jsonl]
     python3 src/repro_torch/kernels/compare.py --sweep-estep
         [--out build/estep_plans.jsonl]
     python3 src/repro_torch/kernels/compare.py --sweep-cached
@@ -44,9 +45,11 @@ kernel (and SDPA beside flash and ``attention_cached``) two ways:
 ``--only`` builds and times the named groups alone (``flash``, ``ssd``,
 ``wkv6``, ``estep``: both E-steps, ``cached``, ``bwd``: flash's backward
 at the training shapes ``BWD_TIMED``, each that the tree's
-``checks.BWD_CASES`` and head dims hold, with SDPA's backward beside it);
-a tree from before ``attention_cached`` or the backward needs ``--only``
-without ``cached`` or ``bwd``.  Prints
+``checks.BWD_CASES`` and head dims hold, with SDPA's backward beside it;
+``wkv6_bwd``, ``ssd_bwd``: the recurrences' backward at rwkv6-3b's and
+zamba2-7b's training shapes, ``checks.RECUR_BWD_CASES``); a tree from
+before ``attention_cached`` or a backward needs ``--only`` without its
+group.  Prints
 one JSON object per version and round, then a summary; writes both to
 ``--out``.
 ``--sweep-estep`` times every launch plan of the E-step kernel at the main
@@ -75,9 +78,10 @@ SSD_CHUNK = 256
 WKV6_MAIN = (64, 40, 512, 64)           # B, H, T, Dh; the model's chunk
 WKV6_CHUNK = 64
 # flash's backward: the training shapes of kernels.checks.BWD_CASES timed
-# (granite-3-2b, hubert-xlarge, pixtral-12b, nemotron-4-340b's heads)
+# (granite-3-2b, hubert-xlarge, pixtral-12b, nemotron-4-340b's heads,
+# zamba2-7b's shared block)
 BWD_TIMED = ("granite_train", "hubert_train", "pixtral_train",
-             "nemotron_train")
+             "nemotron_train", "zamba2_train")
 
 
 def single_call_ms(torch, fn) -> float:
@@ -130,7 +134,11 @@ def _times(torch, fn) -> dict:
 # --only: each group's source and the kernels it times
 GROUPS = {"flash": "flash_attention.cu", "ssd": "ssd.cu", "wkv6": "wkv6.cu",
           "estep": "gmm_estep.cu", "cached": "attention_cached.cu",
-          "bwd": "flash_attention_bwd.cu"}
+          "bwd": "flash_attention_bwd.cu", "wkv6_bwd": "wkv6_bwd.cu",
+          "ssd_bwd": "ssd_bwd.cu"}
+# the recurrences' backward: each group's training shape in
+# checks.RECUR_BWD_CASES
+RECUR_BWD_TIMED = {"wkv6_bwd": "rwkv6_train", "ssd_bwd": "zamba2_train"}
 
 
 def child(label: str, only: str = "") -> dict:
@@ -285,6 +293,26 @@ def child(label: str, only: str = "") -> dict:
                 **_times(torch, call), "graph_ms": graph_ms(torch, call),
                 "library": _times(torch, lib)}
             del q, k, v, do, o, lse, qs, ks, vs, out, exp
+    for grp, tag in RECUR_BWD_TIMED.items():
+        if grp not in groups:
+            continue
+        from repro_torch.kernels import ssd_bwd, wkv6_bwd
+        fn, plain = ((wkv6_bwd.wkv6_bwd, ref.wkv6_bwd_ref) if grp == "wkv6_bwd"
+                     else (ssd_bwd.ssd_bwd, ref.ssd_bwd_ref))
+        kernel, dims, _, scale, fill = checks.RECUR_BWD_CASES[tag]
+        g.manual_seed(0)
+        args, dout, dS = checks.recur_bwd_inputs(g, dev, kernel, dims,
+                                                 torch.bfloat16, scale, fill)
+
+        def call():
+            return fn(*args, dout, dS)
+        res[f"{grp}/{tag}"] = {
+            "max_rel_err": max(
+                float((a.float() - e.float()).abs().max())
+                / float(e.float().abs().max())
+                for a, e in zip(call(), plain(*args, dout, dS))),
+            **_times(torch, call), "graph_ms": graph_ms(torch, call)}
+        del args, dout, dS
     return res
 
 

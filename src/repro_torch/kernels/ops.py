@@ -5,11 +5,10 @@ kernel (or the wrapper raises), a CPU tensor takes the plain version in
 ``ref``.  There is no fallback from a failed kernel to the plain version.
 
 Gradients: on the CPU autograd differentiates the plain versions.  On the
-card ``attention`` takes ``FlashAttention`` (the forward kernel, then the
-hand-written backward) when grad is on and an input requires it, at every
-head dim of the forward; ``wkv6`` and ``ssd`` have no backward kernel yet
-and raise, naming the ROADMAP item that waits for them
-(``refuse_backward``).
+card, when grad is on and an input requires it, ``attention`` takes
+``FlashAttention``, ``wkv6`` takes ``WKV6`` and ``ssd`` takes ``SSD``: each
+the forward kernel, then its hand-written backward kernel, at every shape
+of the forward.
 """
 from __future__ import annotations
 
@@ -23,31 +22,21 @@ from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import gmm_estep as _ge
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd as _ssd
+from repro_torch.kernels import ssd_bwd as _ssdb
 from repro_torch.kernels import wkv6 as _wkv6
+from repro_torch.kernels import wkv6_bwd as _wkv6b
 
 __all__ = ["gmm_estep", "gmm_estep_fused", "attention", "attention_cached",
            "wkv6", "ssd", "launch_counts", "reset_launch_counts"]
 
-# the ROADMAP item that the backward kernels of wkv6 and ssd wait for
-WAITING_ITEM = "ROADMAP item 13"
-
 _KERNEL_COUNTS = (_ge.LAUNCHES, _fa.LAUNCHES, _fab.LAUNCHES, _ac.LAUNCHES,
-                  _wkv6.LAUNCHES, _ssd.LAUNCHES)
+                  _wkv6.LAUNCHES, _wkv6b.LAUNCHES, _ssd.LAUNCHES,
+                  _ssdb.LAUNCHES)
 
 
 def _wants_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
-
-
-def refuse_backward(name: str, *tensors) -> None:
-    """Raise when a kernel without a backward would have to record a
-    gradient: the card has no plain fallback for it."""
-    if _wants_grad(*tensors):
-        raise ValueError(f"{name}: no backward kernel on the card yet (the "
-                         f"training of rwkv6-3b and zamba2-7b waits for "
-                         f"{WAITING_ITEM}); run it under "
-                         "torch.no_grad()")
 
 
 def gmm_estep(x, mu, var, pi):
@@ -93,7 +82,8 @@ def attention_cached(q, k, v, q_pos, kv_pos, *, causal=True, window=0):
 def wkv6(r, k, v, lw, u, s0, chunk: int = 16):
     """(B, H, T, Dh) WKV6 recurrence → (out, final state)."""
     if r.is_cuda:
-        refuse_backward("wkv6", r, k, v, lw, u, s0)
+        if _wants_grad(r, k, v, lw, u, s0):
+            return _wkv6b.WKV6.apply(r, k, v, lw, u, s0, chunk)
         return _wkv6.wkv6(r, k, v, lw, u, s0, chunk=chunk)
     return ref.wkv6_ref(r, k, v, lw, u, s0, chunk=chunk)
 
@@ -101,7 +91,8 @@ def wkv6(r, k, v, lw, u, s0, chunk: int = 16):
 def ssd(x, a_log, B, C, s0, chunk: int = 64):
     """(Bt, H, T, P) Mamba2 SSD recurrence → (y, final state)."""
     if x.is_cuda:
-        refuse_backward("ssd", x, a_log, B, C, s0)
+        if _wants_grad(x, a_log, B, C, s0):
+            return _ssdb.SSD.apply(x, a_log, B, C, s0, chunk)
         return _ssd.ssd(x, a_log, B, C, s0, chunk=chunk)
     return ref.ssd_ref(x, a_log, B, C, s0, chunk=chunk)
 

@@ -16,7 +16,8 @@ _LOG2PI = math.log(2.0 * math.pi)
 
 CUDA_CALLS: Dict[str, int] = {"estep": 0, "estep_fused": 0, "attention": 0,
                                "attention_lse": 0, "attention_bwd": 0,
-                               "attention_cached": 0, "wkv6": 0, "ssd": 0}
+                               "attention_cached": 0, "wkv6": 0, "ssd": 0,
+                               "wkv6_bwd": 0, "ssd_bwd": 0}
 
 
 def _note(name: str, t: torch.Tensor) -> None:
@@ -305,3 +306,135 @@ def ssd_ref(x: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
             + torch.einsum("bhsn,bhsp->bhnp", Bdec, xc)
         ys.append(y)
     return torch.cat(ys, dim=2).to(x.dtype), S
+
+
+def _sweep_dtype(t: torch.Tensor) -> torch.dtype:
+    """The backward sweeps run in f32, or in float64 for float64 inputs
+    (the exact answer of the checks)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lw: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                 d_out: torch.Tensor, dS_T=None):
+    """(dr, dk, dv, dlw, du, dS0) of ``wkv6_ref``'s (out, final state) at
+    output gradient ``d_out`` and final-state gradient ``dS_T`` (None:
+    zero), by the two sweeps the backward kernel runs, in f32:
+
+        forward:  dr_t = S_{t−1} do_t + u ⊙ k_t (v_t·do_t)
+        reverse:  Ḡ_{T−1} = dS_T,   Ḡ_{t−1} = diag(e^{lw_t}) Ḡ_t + r_t do_tᵀ
+                  dk_t = Ḡ_t v_t + u ⊙ r_t (v_t·do_t)
+                  dv_t = Ḡ_tᵀ k_t + (r_t·(u ⊙ k_t)) do_t
+                  dlw_t = e^{lw_t} ⊙ rowsum(Ḡ_t ⊙ S_{t−1})
+                  du = Σ_{b,t} r_t ⊙ k_t (v_t·do_t),   dS0 = Ḡ_{−1}
+
+    (Ḡ_t is the gradient of S_t; every decay factor is ≤ 1.)  dlw is the
+    direct formula here; the kernel takes it from a prefix sum
+    (``wkv6_dlw_prefix``).  dr, dk, dv in r's dtype, the rest f32 (float64
+    for float64 inputs).  Keeps every S_{t−1}: B·H·T·Dh² values.
+    """
+    _note("wkv6_bwd", r)
+    ct = _sweep_dtype(r)
+    B, H, T, Dh = r.shape
+    rf, kf, vf, lwf, do = (a.to(ct) for a in (r, k, v, lw, d_out))
+    uf = u.to(ct)
+    w = torch.exp(lwf)
+    vdo = (vf * do).sum(-1)                                     # (B,H,T)
+    S = s0.to(ct)
+    prev, dr = [], []
+    for t in range(T):
+        prev.append(S)
+        dr.append(torch.einsum("bhde,bhe->bhd", S, do[:, :, t]))
+        S = w[:, :, t, :, None] * S \
+            + kf[:, :, t, :, None] * vf[:, :, t, None, :]
+    G = torch.zeros_like(S) if dS_T is None else dS_T.to(ct).clone()
+    dk, dv, dlw = [None] * T, [None] * T, [None] * T
+    ruk = (rf * uf[None, :, None] * kf).sum(-1)                 # (B,H,T)
+    for t in range(T - 1, -1, -1):
+        dk[t] = torch.einsum("bhde,bhe->bhd", G, vf[:, :, t])
+        dv[t] = torch.einsum("bhde,bhd->bhe", G, kf[:, :, t]) \
+            + ruk[:, :, t, None] * do[:, :, t]
+        dlw[t] = w[:, :, t] * (G * prev[t]).sum(-1)
+        G = w[:, :, t, :, None] * G \
+            + rf[:, :, t, :, None] * do[:, :, t, None, :]
+    bonus = uf[None, :, None] * vdo[..., None]                  # (B,H,T,Dh)
+    dr = torch.stack(dr, 2) + bonus * kf
+    dk = torch.stack(dk, 2) + bonus * rf
+    du = (rf * kf * vdo[..., None]).sum((0, 2))
+    return (dr.to(r.dtype), dk.to(k.dtype), torch.stack(dv, 2).to(v.dtype),
+            torch.stack(dlw, 2), du, G)
+
+
+def wkv6_dlw_prefix(r, k, s0, dr_tilde, dk_tilde, dS0):
+    """dlw by the prefix sum the backward kernel uses, from dr and dk
+    without their u terms (``dr_tilde = S_{t−1} do_t``, ``dk_tilde = Ḡ_t
+    v_t``) and dS0:
+
+        dlw_j = Σ_{s<j} k_s ⊙ dk̃_s − Σ_{t≤j} r_t ⊙ dr̃_t + rowsum(s0 ⊙ dS0)
+
+    (from ⟨Ḡ_{t−1}, S_{t−1}⟩ = r_t·dr̃_t + dlw_t and ⟨Ḡ_t, S_t⟩ = dlw_t +
+    k_t·dk̃_t, per row of the state).  No S_{t−1} and Ḡ_t of the same step
+    meet, so each sweep carries one state."""
+    kdk = k * dk_tilde
+    rdr = r * dr_tilde
+    c = (s0 * dS0).sum(-1)[:, :, None]                          # (B,H,1,Dh)
+    return c + torch.cumsum(kdk, 2) - kdk - torch.cumsum(rdr, 2)
+
+
+def ssd_bwd_ref(x: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
+                C: torch.Tensor, s0: torch.Tensor, dy: torch.Tensor,
+                dS_T=None):
+    """(dx, da_log, dB, dC, dS0) of ``ssd_ref``'s (y, final state) at
+    output gradient ``dy`` and final-state gradient ``dS_T`` (None: zero),
+    by the two sweeps the backward kernel runs, in f32:
+
+        forward:  dC_t = Σ_h S_t dy_t            (S_t after step t)
+        reverse:  Ḡ_{T−1} = dS_T + C_{T−1} dy_{T−1}ᵀ,
+                  Ḡ_t = e^{a_{t+1}} Ḡ_{t+1} + C_t dy_tᵀ
+                  dx_t = Ḡ_tᵀ B_t,   dB_t = Σ_h Ḡ_t x_t
+                  da_t = e^{a_t} ⟨Ḡ_t, S_{t−1}⟩,   dS0 = e^{a_0} Ḡ_0
+
+    B and C are shared by the heads, so dB and dC sum over them.  da is the
+    direct formula here; the kernel takes it from a prefix sum
+    (``ssd_da_prefix``).  dx, dB, dC in x's dtype, the rest f32 (float64
+    for float64 inputs).  Keeps every S_t: Bt·H·T·N·P values.
+    """
+    _note("ssd_bwd", x)
+    ct = _sweep_dtype(x)
+    Bt, H, T, P = x.shape
+    xf, dyf = x.to(ct), dy.to(ct)
+    al, Bf, Cf = a_log.to(ct), B.to(ct), C.to(ct)
+    ea = torch.exp(al)                                           # (Bt,H,T)
+    S = s0.to(ct)
+    states, dC = [S], []
+    for t in range(T):
+        S = ea[:, :, t, None, None] * S \
+            + Bf[:, None, t, :, None] * xf[:, :, t, None, :]
+        states.append(S)
+        dC.append(torch.einsum("bhnp,bhp->bn", S, dyf[:, :, t]))
+    G = torch.zeros_like(S) if dS_T is None else dS_T.to(ct).clone()
+    dx, dB, da = [None] * T, [None] * T, [None] * T
+    for t in range(T - 1, -1, -1):
+        G = G + Cf[:, None, t, :, None] * dyf[:, :, t, None, :]
+        dx[t] = torch.einsum("bhnp,bn->bhp", G, Bf[:, t])
+        dB[t] = torch.einsum("bhnp,bhp->bn", G, xf[:, :, t])
+        da[t] = ea[:, :, t] * (G * states[t]).sum((-2, -1))
+        G = ea[:, :, t, None, None] * G
+    return (torch.stack(dx, 2).to(x.dtype), torch.stack(da, 2),
+            torch.stack(dB, 1).to(B.dtype), torch.stack(dC, 1).to(C.dtype),
+            G)
+
+
+def ssd_da_prefix(x, C, s0, dx, dC_heads, dS0):
+    """da_log by the prefix sum the backward kernel uses, per (b, h), from
+    dx, each head's own part of dC (``dC_heads`` (Bt, H, T, N), before the
+    sum over heads) and dS0:
+
+        da_j = Σ_{s<j} x_s·dx_s − Σ_{t<j} C_t·dC_t^{(h)} + ⟨s0, dS0⟩
+
+    (from ⟨Ḡ_t, S_t⟩ = da_t + x_t·dx_t and ⟨Ḡ_{t−1}, S_{t−1}⟩ =
+    C_{t−1}·dC_{t−1}^{(h)} + da_t)."""
+    xdx = (x * dx).sum(-1)                                     # (Bt,H,T)
+    cdc = (C[:, None] * dC_heads).sum(-1)                      # (Bt,H,T)
+    c = (s0 * dS0).sum((-2, -1))[..., None]
+    return c + torch.cumsum(xdx - cdc, 2) - (xdx - cdc)

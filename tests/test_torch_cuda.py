@@ -14,7 +14,8 @@ against the plain versions and, at the paths' head sizes and T = 200,
 against the float64 step recurrence; 1e-2 in bf16, where kernel and plain
 version each round one f32 result to bf16 (at most one bf16 step, 2^-8
 relative, apart).  Flash attention's backward: ``kernels.checks``'s
-``BWD_TOL_F32`` / ``BWD_TOL_BF16`` × each gradient's max.  The flash cases
+``BWD_TOL_F32`` / ``BWD_TOL_BF16`` × each gradient's max; that of wkv6 and
+ssd ``RECUR_BWD_TOL_F32`` / ``RECUR_BWD_TOL_BF16``.  The flash cases
 over several key tiles compare the
 rows with a visible key; bf16 layouts that the kernels cannot copy in
 16-byte pieces raise ``ValueError`` without a launch.
@@ -292,19 +293,109 @@ def test_flash_attention_bwd_copies_a_do_it_cannot_read(dev):
 
 
 def test_refusals_without_a_backward_kernel(dev):
-    """``wkv6`` / ``ssd`` with grad raise naming their ROADMAP item before
-    any launch; no plain fallback."""
-    ops.reset_launch_counts()
-    r = torch.randn(1, 2, 64, 64, device=dev, requires_grad=True)
-    with pytest.raises(ValueError, match="ROADMAP item 13"):
-        ops.wkv6(r, r, r, r, torch.zeros(2, 64, device=dev),
-                 torch.zeros(1, 2, 64, 64, device=dev))
-    with pytest.raises(ValueError, match="ROADMAP item 13"):
-        bc = torch.zeros(1, 64, 16, device=dev)
-        ops.ssd(r, torch.zeros(1, 2, 64, device=dev), bc, bc,
-                torch.zeros(1, 2, 16, 64, device=dev))
-    assert not any(n for key, n in ops.launch_counts().items()
-                   if key.startswith("plain_on_cuda"))
+    """``wkv6`` / ``ssd`` with grad on CUDA (which raised before their
+    backward kernels existed) launch their forward kernel once and their
+    backward kernel once, and no plain version."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    for kernel, dims in (("wkv6", (1, 2, 64, 64)), ("ssd", (1, 2, 64, 16, 64))):
+        args, dout, _ = checks.recur_bwd_inputs(g, dev, kernel, dims,
+                                                torch.bfloat16, 1.0)
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        ops.reset_launch_counts()
+        out, _ = getattr(ops, kernel)(*leaves)
+        out.backward(dout)
+        counts = ops.launch_counts()
+        assert counts[kernel] == 1 and counts[f"{kernel}_bwd"] == 1, counts
+        assert not any(n for key, n in counts.items()
+                       if key.startswith("plain_on_cuda"))
+        assert all(t.grad is not None for t in leaves)
+
+
+_RECUR = {"wkv6": ("WKV6", ref.wkv6_ref, ref.wkv6_bwd_ref,
+                   ("dr", "dk", "dv", "dlw", "du", "dS0")),
+          "ssd": ("SSD", ref.ssd_ref, ref.ssd_bwd_ref,
+                  ("dx", "da_log", "dB", "dC", "dS0"))}
+
+
+def _recur_bwd(kernel):
+    from repro_torch.kernels import ssd_bwd, wkv6_bwd
+    return wkv6_bwd.wkv6_bwd if kernel == "wkv6" else ssd_bwd.ssd_bwd
+
+
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, checks.RECUR_BWD_TOL_F32),
+    (torch.bfloat16, checks.RECUR_BWD_TOL_BF16)])
+@pytest.mark.parametrize("tag", sorted(checks.RECUR_BWD_CASES))
+def test_recurrent_bwd_check_cases(dev, tag, dtype, tol):
+    """The wkv6 / ssd backward kernels at ``kernels.checks.RECUR_BWD_CASES``
+    against their plain versions and against autograd of the plain
+    forwards, every gradient within tol × its max; gradients in their
+    inputs' dtypes."""
+    kernel, dims, chunk, scale, fill = checks.RECUR_BWD_CASES[tag]
+    g = torch.Generator(device=dev)
+    g.manual_seed(sum(dims))
+    args, dout, dS = checks.recur_bwd_inputs(g, dev, kernel, dims, dtype,
+                                             scale, fill)
+    _, fwd, plain, names = _RECUR[kernel]
+    got = _recur_bwd(kernel)(*args, dout, dS)
+    exp = plain(*args, dout, dS)
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    out, S = fwd(*leaves, chunk=chunk)
+    torch.autograd.backward((out, S) if dS is not None else out,
+                            (dout, dS) if dS is not None else dout)
+    for name, a, e, leaf in zip(names, got, exp, leaves):
+        assert a.dtype == e.dtype and a.shape == e.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        for want in (e, leaf.grad):
+            err = float((a.float() - want.float()).abs().max())
+            assert err <= tol * float(want.float().abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("tag", ["rwkv6_train", "zamba2_train"])
+def test_recurrent_bwd_is_deterministic(dev, tag):
+    """Two calls of a bf16 backward at a training shape give the same
+    bits: no atomics, every sum in one fixed order."""
+    kernel, dims, _, scale, fill = checks.RECUR_BWD_CASES[tag]
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    args, dout, dS = checks.recur_bwd_inputs(g, dev, kernel, dims,
+                                             torch.bfloat16, 1.0, fill)
+    fn = _recur_bwd(kernel)
+    for a, b in zip(fn(*args, dout, dS), fn(*args, dout, dS)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kernel", ["wkv6", "ssd"])
+def test_ops_recurrent_gradient_through_the_kernels(dev, kernel):
+    """``ops.wkv6`` / ``ops.ssd`` with grad on CUDA, f32, a nonzero s0 and
+    a loss on both outputs: every input's gradient equals autograd of the
+    plain version on the same inputs within 1e-3 × its max; a d_out whose
+    last dim is strided is copied, not refused."""
+    dims = (2, 3, 70, 32) if kernel == "wkv6" else (2, 3, 70, 16, 32)
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    args, dout, dS = checks.recur_bwd_inputs(g, dev, kernel, dims,
+                                             torch.float32, 1.0)
+    grads = []
+    for fn in (getattr(ops, kernel), _RECUR[kernel][1]):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        out, S = fn(*leaves)
+        # two passes: the card's backward once with each output's gradient
+        # absent
+        (out * dout).sum().backward(retain_graph=True)
+        (S * dS).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, e in zip(*grads):
+        err = float((a - e).abs().max())
+        assert err <= 1e-3 * float(e.abs().max())
+    wide = torch.zeros(*dout.shape, 2, device=dev)
+    wide[..., 0] = dout
+    odd = wide[..., 0]
+    assert odd.stride(-1) == 2
+    for a, b in zip(_recur_bwd(kernel)(*args, odd, dS),
+                    _recur_bwd(kernel)(*args, dout.contiguous(), dS)):
+        assert torch.equal(a, b)
 
 
 # cached attention over per-row positions: kind, (B, Sq, Sk), window

@@ -128,22 +128,35 @@ def test_session_options_filter_resample_and_normalize(features):
 
 
 def test_unported_options_name_their_roadmap_item():
-    """Mesh execution still raises naming its ROADMAP item; so do the
-    gradients that have no backward kernel on the card yet (``wkv6`` and
-    ``ssd`` with grad: item 13), checked before any launch; the options
-    of items 4 and 5 (ingest, the round-program cache, resilience) now
-    run a round on the CPU."""
+    """Mesh execution still raises naming its ROADMAP item; the gradients
+    of ``wkv6`` and ``ssd`` (item 13, done: a backward kernel each on the
+    card) are, on CPU tensors, those of the plain versions; the options
+    of items 4 and 5 (ingest, the round-program cache, resilience) run a
+    round on the CPU."""
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
         A.FedSession(n_classes=2, shards=2).run(
             [(torch.zeros(4, 3), torch.zeros(4).long())], device="cpu")
-    from repro_torch.kernels import ops
-    x = torch.zeros(1, 2, 4, 8, requires_grad=True)
-    for name in ("wkv6", "ssd"):
-        with pytest.raises(ValueError, match="ROADMAP item 13"):
-            ops.refuse_backward(name, x, None)
-        ops.refuse_backward(name, x.detach(), None)   # no gradient wanted
-        with torch.no_grad():
-            ops.refuse_backward(name, x, None)
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator().manual_seed(0)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g)
+    wargs = (rnd(1, 2, 12, 8), rnd(1, 2, 12, 8), rnd(1, 2, 12, 8),
+             -torch.rand(1, 2, 12, 8, generator=g), rnd(2, 8), rnd(1, 2, 8, 8))
+    sargs = (rnd(1, 2, 12, 8), -torch.rand(1, 2, 12, generator=g),
+             rnd(1, 12, 4), rnd(1, 12, 4), rnd(1, 2, 4, 8))
+    ops.reset_launch_counts()
+    for fn, plain, args in ((ops.wkv6, ref.wkv6_ref, wargs),
+                            (ops.ssd, ref.ssd_ref, sargs)):
+        grads = []
+        for f in (fn, plain):
+            leaves = [a.clone().requires_grad_() for a in args]
+            out, S = f(*leaves, chunk=4)
+            (out.square().sum() + S.sum()).backward()
+            grads.append([t.grad for t in leaves])
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert all(v == 0 for v in ops.launch_counts().values())
     from repro_torch.fl.ingest import IngestConfig
     from repro_torch.fl.resilience import ResilienceConfig
     from repro_torch.launch.aot_cache import ProgramCache
