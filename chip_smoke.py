@@ -549,8 +549,8 @@ def few_ms(torch, fn, n: int = 3) -> float:
 
 def recur_bwd_work(kernel, dims, dtype_bytes):
     """The bytes that the wkv6 / ssd backward must move (each input read
-    once, each output written once; no final-state gradient, as training
-    passes none) and the products of their chunked form (chunk 64) on the
+    once, each output written once; the timed case has no final-state
+    gradient, zero in training) and the products of their chunked form (chunk 64) on the
     bf16 tensor cores: the function's bound.  wkv6: per step and (b, h)
     about 10 Dh (C + Dh) (the forward's 4 Dh (C + Dh), twice over and the
     recompute); ssd: C Bᵀ and its gradient for all heads, and per head the
@@ -2341,7 +2341,7 @@ TRAIN_LR = dict(peak_lr=3e-4, total_steps=200, warmup_steps=20)
 # rwkv6-3b at full depth (2.86 B × 12 B ≈ 34 GB with Adam) through the
 # wkv6 kernel and its backward, 6 steps: its loss rises at step 3 and
 # falls below the first by step 6, through the kernels and through the
-# plain version alike (PERF.md §6, PR 22); zamba2-7b cut to 12 of 81
+# plain version alike (PERF.md §6); zamba2-7b cut to 12 of 81
 # layers (two uses of the shared block, ≈ 1.4 B parameters: all 81 need
 # ≈ 81 GB with Adam) through ssd and its backward and the flash backward
 # at D = 112, causal

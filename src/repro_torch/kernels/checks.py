@@ -213,8 +213,8 @@ def ssd_inputs(g: torch.Generator, dev, Bt, H, T, N, P, dtype=torch.float32,
 
 # the recurrences' backward kernels, tag: (kernel, dims, chunk, s0 and
 # dS_T scale, lw fill): rwkv6-3b's and zamba2-7b's training shapes as the
-# blocks pass them (s0 = 0 and no final-state gradient, as training
-# has), then the other head and state sizes, T that no tile of 16 divides,
+# blocks pass them (s0 = 0 and the final-state gradient None: zero, as in
+# training), then the other head and state sizes, T that no tile of 16 divides,
 # and lw at the model's clamp, with s0 and dS_T nonzero.  ``chunk`` is the
 # plain chunked version's, for the comparison with its autograd: one that
 # divides T, and 10 at lw = −8 (the chunked VJP's masked exponents reach

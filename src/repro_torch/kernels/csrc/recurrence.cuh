@@ -1,6 +1,7 @@
 // Device helpers shared by the sequential-recurrence kernels (wkv6.cu,
-// ssd.cu). Both hold an f32 state in registers, one column per group of
-// four adjacent lanes, and stage each tile of steps in shared memory.
+// ssd.cu and their backwards, wkv6_bwd.cu, ssd_bwd.cu). Each holds its
+// state in registers, one column (or row) per group of four adjacent
+// lanes, and stages each tile of steps in shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,10 +36,38 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// The backward sweeps' accumulation type: f64 for f32 inputs, whose
+// prefix sums cancel where the decay is strong (wkv6_bwd.cu's header),
+// f32 for bf16 inputs.
+template <typename T>
+struct Acc {
+  using type = float;
+};
+template <>
+struct Acc<float> {
+  using type = double;
+};
+
+__device__ __forceinline__ float mad(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double mad(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
 // Sum over the four adjacent lanes that share one state column.
-__device__ __forceinline__ float quad_sum(float x) {
+template <typename A>
+__device__ __forceinline__ A quad_sum(A x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Sum over the 32 lanes of a warp.
+template <typename A>
+__device__ __forceinline__ A warp_sum(A x) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
+  return x;
 }
 
 }  // namespace recurrence

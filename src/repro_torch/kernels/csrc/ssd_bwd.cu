@@ -72,39 +72,13 @@ constexpr int W = 64;      // staged width: P and N padded to 64
 constexpr int MAX_P = 64;
 constexpr int RP = MAX_P / 4;  // row-owned slots: columns q + 4i
 
+using recurrence::Acc;
 using recurrence::Strides;
 using recurrence::from_f32;
+using recurrence::mad;
+using recurrence::quad_sum;
 using recurrence::to_f32;
-
-// The sweeps' accumulation type: f64 for f32 inputs, f32 for bf16.
-template <typename T>
-struct Acc {
-  using type = float;
-};
-template <>
-struct Acc<float> {
-  using type = double;
-};
-
-__device__ __forceinline__ float mad(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double mad(double a, double b, double c) {
-  return fma(a, b, c);
-}
-
-template <typename A>
-__device__ __forceinline__ A quad_sum(A x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-template <typename A>
-__device__ __forceinline__ A warp_sum(A x) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
-  return x;
-}
+using recurrence::warp_sum;
 
 // Zero a [TC][W] tile: the padding past P or N stays zero afterwards.
 __device__ __forceinline__ void zero(float (&a)[TC][W], int nthreads) {

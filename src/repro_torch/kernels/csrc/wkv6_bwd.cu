@@ -67,38 +67,13 @@ namespace {
 
 constexpr int TC = 16;  // steps staged in shared memory per tile
 
+using recurrence::Acc;
 using recurrence::Strides;
 using recurrence::from_f32;
+using recurrence::mad;
+using recurrence::quad_sum;
 using recurrence::to_f32;
-
-// The sweeps' accumulation type: f64 for f32 inputs, f32 for bf16.
-template <typename T>
-struct Acc {
-  using type = float;
-};
-template <>
-struct Acc<float> {
-  using type = double;
-};
-
-__device__ __forceinline__ float mad(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double mad(double a, double b, double c) {
-  return fma(a, b, c);
-}
-
-template <typename A>
-__device__ __forceinline__ A quad_sum(A x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
-  return x;
-}
+using recurrence::warp_sum;
 
 // Stage TC steps of r, k, v, do and exp(lw) as f32; then each warp takes
 // v . do (and, given `ruk`, r . (u * k)) of every (NT / 32)-th step.

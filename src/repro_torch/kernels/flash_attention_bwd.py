@@ -70,12 +70,13 @@ def piece_visibility(qa: int, qb: int, ka: int, kb: int, Sq: int, Sk: int,
     return some, every
 
 
-def _grad_like(t: torch.Tensor) -> torch.Tensor:
+def grad_like(t: torch.Tensor, dtype=None) -> torch.Tensor:
     """An uninitialized (B, heads, S, D) view of a (B, S, heads, D)
-    tensor: the layout of the activations the heads came from, so the
-    gradient leaves the transposes without a copy."""
+    tensor, in ``t``'s dtype unless ``dtype`` is given: the layout of the
+    activations the heads came from, so the gradient leaves the
+    transposes without a copy."""
     B, Hh, S, D = t.shape
-    return torch.empty((B, S, Hh, D), dtype=t.dtype,
+    return torch.empty((B, S, Hh, D), dtype=dtype or t.dtype,
                        device=t.device).transpose(1, 2)
 
 
@@ -132,7 +133,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"on {dev}, got {tuple(lse.shape)} {lse.dtype}")
     lse = lse.contiguous()
     di = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-    dq, dk, dv = _grad_like(q), _grad_like(k), _grad_like(v)
+    dq, dk, dv = grad_like(q), grad_like(k), grad_like(v)
     strides = (ctypes.c_longlong * 24)(*(s for t in (q, k, v, o, do, dq, dk,
                                                       dv)
                                          for s in t.stride()[:3]))

@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ssd as _ssd
-from repro_torch.kernels.wkv6_bwd import ACC_DTYPES, grad_like
+from repro_torch.kernels.flash_attention_bwd import grad_like
+from repro_torch.kernels.wkv6_bwd import ACC_DTYPES
 
 _SOURCE = "ssd_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -126,21 +127,15 @@ def ssd_bwd(x: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
 class SSD(torch.autograd.Function):
     """The SSD recurrence with a gradient: the ``ssd`` kernel forward and
     this backward kernel, both hand-written.  Returns (y, final state);
-    either output's gradient may be absent (zero)."""
+    autograd hands the backward zeros for an output that took no
+    gradient."""
 
     @staticmethod
     def forward(ctx, x, a_log, B, C, s0, chunk: int):
         y, S = _ssd.ssd(x, a_log, B, C, s0, chunk=chunk)
         ctx.save_for_backward(x, a_log, B, C, s0)
-        ctx.set_materialize_grads(False)
         return y, S
 
     @staticmethod
     def backward(ctx, dy, dS_T):
-        x, a_log, B, C, s0 = ctx.saved_tensors
-        if dy is None:
-            dy = torch.zeros_like(x)
-        grads = ssd_bwd(x, a_log, B, C, s0, dy.to(x.dtype), dS_T)
-        return tuple(g.to(t.dtype) if need else None
-                     for g, t, need in zip(grads, (x, a_log, B, C, s0),
-                                           ctx.needs_input_grad)) + (None,)
+        return (*ssd_bwd(*ctx.saved_tensors, dy, dS_T), None)

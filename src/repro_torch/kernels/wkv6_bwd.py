@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import wkv6 as _wkv6
+from repro_torch.kernels.flash_attention_bwd import grad_like
 
 _SOURCE = "wkv6_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -44,15 +45,6 @@ def _launch_fn():
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
-
-
-def grad_like(t: torch.Tensor, dtype=None) -> torch.Tensor:
-    """An uninitialized (B, H, T, D) view of a (B, T, H, D) tensor: the
-    layout of the activations the heads came from, so the gradient leaves
-    the transposes without a copy."""
-    B, H, T, D = t.shape
-    return torch.empty((B, T, H, D), dtype=dtype or t.dtype,
-                       device=t.device).transpose(1, 2)
 
 
 def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -133,21 +125,15 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class WKV6(torch.autograd.Function):
     """The WKV6 recurrence with a gradient: the ``wkv6`` kernel forward and
     this backward kernel, both hand-written.  Returns (out, final state);
-    either output's gradient may be absent (zero)."""
+    autograd hands the backward zeros for an output that took no
+    gradient."""
 
     @staticmethod
     def forward(ctx, r, k, v, lw, u, s0, chunk: int):
         out, S = _wkv6.wkv6(r, k, v, lw, u, s0, chunk=chunk)
         ctx.save_for_backward(r, k, v, lw, u, s0)
-        ctx.set_materialize_grads(False)
         return out, S
 
     @staticmethod
     def backward(ctx, d_out, dS_T):
-        r, k, v, lw, u, s0 = ctx.saved_tensors
-        if d_out is None:
-            d_out = torch.zeros_like(r)
-        grads = wkv6_bwd(r, k, v, lw, u, s0, d_out.to(r.dtype), dS_T)
-        return tuple(g.to(t.dtype) if need else None
-                     for g, t, need in zip(grads, (r, k, v, lw, u, s0),
-                                           ctx.needs_input_grad)) + (None,)
+        return (*wkv6_bwd(*ctx.saved_tensors, d_out, dS_T), None)

@@ -34,7 +34,9 @@ from repro_torch.kernels import flash_attention_bwd as FAB
 from repro_torch.kernels import gmm_estep as GE
 from repro_torch.kernels import checks, ops, ref
 from repro_torch.kernels import ssd as SSD
+from repro_torch.kernels import ssd_bwd as SSDB
 from repro_torch.kernels import wkv6 as WKV
+from repro_torch.kernels import wkv6_bwd as WKVB
 from repro_torch.models import model as M
 
 pytestmark = pytest.mark.cuda
@@ -312,15 +314,12 @@ def test_refusals_without_a_backward_kernel(dev):
         assert all(t.grad is not None for t in leaves)
 
 
-_RECUR = {"wkv6": ("WKV6", ref.wkv6_ref, ref.wkv6_bwd_ref,
+# kernel: (its backward's wrapper, plain forward, plain backward, the
+# gradients' names)
+_RECUR = {"wkv6": (WKVB.wkv6_bwd, ref.wkv6_ref, ref.wkv6_bwd_ref,
                    ("dr", "dk", "dv", "dlw", "du", "dS0")),
-          "ssd": ("SSD", ref.ssd_ref, ref.ssd_bwd_ref,
+          "ssd": (SSDB.ssd_bwd, ref.ssd_ref, ref.ssd_bwd_ref,
                   ("dx", "da_log", "dB", "dC", "dS0"))}
-
-
-def _recur_bwd(kernel):
-    from repro_torch.kernels import ssd_bwd, wkv6_bwd
-    return wkv6_bwd.wkv6_bwd if kernel == "wkv6" else ssd_bwd.ssd_bwd
 
 
 @pytest.mark.parametrize("dtype,tol", [
@@ -337,8 +336,8 @@ def test_recurrent_bwd_check_cases(dev, tag, dtype, tol):
     g.manual_seed(sum(dims))
     args, dout, dS = checks.recur_bwd_inputs(g, dev, kernel, dims, dtype,
                                              scale, fill)
-    _, fwd, plain, names = _RECUR[kernel]
-    got = _recur_bwd(kernel)(*args, dout, dS)
+    fn, fwd, plain, names = _RECUR[kernel]
+    got = fn(*args, dout, dS)
     exp = plain(*args, dout, dS)
     leaves = [a.detach().clone().requires_grad_() for a in args]
     out, S = fwd(*leaves, chunk=chunk)
@@ -361,7 +360,7 @@ def test_recurrent_bwd_is_deterministic(dev, tag):
     g.manual_seed(2)
     args, dout, dS = checks.recur_bwd_inputs(g, dev, kernel, dims,
                                              torch.bfloat16, 1.0, fill)
-    fn = _recur_bwd(kernel)
+    fn = _RECUR[kernel][0]
     for a, b in zip(fn(*args, dout, dS), fn(*args, dout, dS)):
         assert torch.equal(a, b)
 
@@ -393,8 +392,8 @@ def test_ops_recurrent_gradient_through_the_kernels(dev, kernel):
     wide[..., 0] = dout
     odd = wide[..., 0]
     assert odd.stride(-1) == 2
-    for a, b in zip(_recur_bwd(kernel)(*args, odd, dS),
-                    _recur_bwd(kernel)(*args, dout.contiguous(), dS)):
+    fn = _RECUR[kernel][0]
+    for a, b in zip(fn(*args, odd, dS), fn(*args, dout.contiguous(), dS)):
         assert torch.equal(a, b)
 
 
