@@ -579,8 +579,9 @@ def recur_bwd_work(kernel, dims, dtype_bytes):
 def recur_bwd_checks(torch, dev, g, res):
     """The wkv6 and ssd backward kernels at ``kernels.checks.
     RECUR_BWD_CASES`` (rwkv6-3b's and zamba2-7b's training shapes, then
-    the other head and state sizes, odd T, lw at −8, with s0 and dS_T
-    nonzero), f32 and bf16: every gradient against the plain version
+    the other head and state sizes, odd T, lw at −8 over 100 and 1000
+    steps, a_log at −2, with s0 and dS_T nonzero), f32 and bf16 (the
+    chunked route on the tensor cores): every gradient against the plain version
     (``ref.wkv6_bwd_ref`` / ``ref.ssd_bwd_ref``) and against autograd of
     the plain forward within ``RECUR_BWD_TOL_*`` × its max, and two calls
     bitwise equal.  Timed in bf16 at the training shapes; the plain
@@ -601,7 +602,7 @@ def recur_bwd_checks(torch, dev, g, res):
             args, dout, dS = checks.recur_bwd_inputs(g, dev, kernel, dims,
                                                      dt, scale, fill)
             shape = dict(case=tag, **dict(zip(dnames.split(","), dims)),
-                         dtype=str(dt), lw_fill=fill,
+                         dtype=str(dt), decay_fill=fill,
                          final_state_grad=dS is not None)
             tol = (checks.RECUR_BWD_TOL_BF16 if dt == torch.bfloat16
                    else checks.RECUR_BWD_TOL_F32)

@@ -193,16 +193,18 @@ def wkv6_inputs(g: torch.Generator, dev, B, H, T, Dh, dtype=torch.float32,
 
 
 def ssd_inputs(g: torch.Generator, dev, Bt, H, T, N, P, dtype=torch.float32,
-               s0_scale=1.0, model_like=False):
+               s0_scale=1.0, model_like=False, a_fill=None):
     """(x, a_log, B, C, s0): x, B, C in ``dtype``; a_log ≤ 0 and s0 in
     f32.  ``model_like`` lays x and a_log out as the Mamba2 block passes
     them ((Bt, T, H, ·) transposed) with a_log = Δ·A for Δ in [1e-3, 0.1]
-    and A = −1 (A_log = 0)."""
+    and A = −1 (A_log = 0); ``a_fill`` then holds a_log at that value."""
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=dev)
     if model_like:
         x = rnd(Bt, T, H, P).to(dtype).transpose(1, 2)
         a = -(1e-3 + 0.099 * torch.rand(Bt, T, H, generator=g, device=dev))
+        if a_fill is not None:
+            a = torch.full_like(a, a_fill)
         a = a.transpose(1, 2)
     else:
         x = rnd(Bt, H, T, P).to(dtype)
@@ -212,19 +214,24 @@ def ssd_inputs(g: torch.Generator, dev, Bt, H, T, N, P, dtype=torch.float32,
 
 
 # the recurrences' backward kernels, tag: (kernel, dims, chunk, s0 and
-# dS_T scale, lw fill): rwkv6-3b's and zamba2-7b's training shapes as the
-# blocks pass them (s0 = 0 and the final-state gradient None: zero, as in
-# training), then the other head and state sizes, T that no tile of 16 divides,
-# and lw at the model's clamp, with s0 and dS_T nonzero.  ``chunk`` is the
-# plain chunked version's, for the comparison with its autograd: one that
-# divides T, and 10 at lw = −8 (the chunked VJP's masked exponents reach
-# e^{+8(C−1)}: past a chunk of 12 they overflow and make dlw NaN,
-# tests/test_torch_recurrent_bwd.py)
+# dS_T scale, decay fill: lw for wkv6, a_log for ssd): rwkv6-3b's and
+# zamba2-7b's training shapes as the blocks pass them (s0 = 0 and the
+# final-state gradient None: zero, as in training), then the other head and
+# state sizes, T that no tile of 16 divides, lw at the model's clamp (over
+# T = 100, and over 16 of the bf16 kernel's chunks of 64, the last ragged at
+# 40 steps) and a_log ≡ −2, far past Mamba2's init range, with s0 and dS_T
+# nonzero.  ``chunk`` is the plain chunked version's, for the comparison
+# with its autograd: one that divides T, and 10 at lw = −8 (the chunked
+# VJP's masked exponents reach e^{+8(C−1)}: past a chunk of 12 they
+# overflow and make dlw NaN, tests/test_torch_recurrent_bwd.py), 8 at
+# a_log = −2 (they reach e^{2(C−1)})
 RECUR_BWD_CASES = {"rwkv6_train": ("wkv6", (8, 40, 1024, 64), 64, 0.0, None),
                    "zamba2_train": ("ssd", (4, 112, 1024, 64, 64), 256, 0.0,
                                     None),
                    "wkv6_T=200": ("wkv6", (2, 4, 200, 64), 40, 1.0, None),
                    "wkv6_lw=-8": ("wkv6", (2, 4, 100, 64), 10, 1.0, -8.0),
+                   "wkv6_T=1000_lw=-8": ("wkv6", (1, 2, 1000, 64), 10, 1.0,
+                                         -8.0),
                    "wkv6_dh32": ("wkv6", (2, 3, 37, 32), 16, 1.0, None),
                    "wkv6_dh16": ("wkv6", (1, 5, 50, 16), 16, 1.0, None),
                    "wkv6_dh8": ("wkv6", (3, 2, 19, 8), 8, 1.0, None),
@@ -232,7 +239,8 @@ RECUR_BWD_CASES = {"rwkv6_train": ("wkv6", (8, 40, 1024, 64), 64, 0.0, None),
                    "ssd_N32_P40": ("ssd", (2, 3, 70, 32, 40), 32, 1.0, None),
                    "ssd_N16_P32": ("ssd", (1, 4, 33, 16, 32), 16, 1.0, None),
                    "ssd_N4_P8": ("ssd", (2, 3, 21, 4, 8), 8, 1.0, None),
-                   "ssd_N8_P16": ("ssd", (1, 2, 1, 8, 16), 8, 1.0, None)}
+                   "ssd_N8_P16": ("ssd", (1, 2, 1, 8, 16), 8, 1.0, None),
+                   "ssd_a=-2": ("ssd", (2, 4, 200, 64, 64), 8, 1.0, -2.0)}
 # |got − exp| ≤ tol · max |exp| per gradient.  f32: both sides sum in f32
 # in their own orders (dlw and da_log by the prefix sum against the direct
 # formula).  bf16: both compute in f32 from the same bf16 inputs and round
@@ -242,19 +250,20 @@ RECUR_BWD_TOL_BF16 = 1e-2
 
 
 def recur_bwd_inputs(g: torch.Generator, dev, kernel, dims, dtype, scale,
-                     lw_fill=None):
+                     fill=None):
     """(the forward's inputs, the output gradient, the final-state
     gradient or None) of a ``RECUR_BWD_CASES`` case: the inputs as the
-    blocks lay them out (``model_like``), the output gradient as a
+    blocks lay them out (``model_like``, the decay held at ``fill`` when
+    given), the output gradient as a
     (·, ·, T, ·) view of a (·, T, ·, ·) tensor in ``dtype``, the final-state
     gradient N(0, scale²) in f32, None when scale is 0."""
     if kernel == "wkv6":
-        kw = {} if lw_fill is None else {"lw_fill": lw_fill}
         args = wkv6_inputs(g, dev, *dims, dtype, scale, model_like=True,
-                           **kw)
+                           lw_fill=fill)
         state = args[5].shape
     else:
-        args = ssd_inputs(g, dev, *dims, dtype, scale, model_like=True)
+        args = ssd_inputs(g, dev, *dims, dtype, scale, model_like=True,
+                          a_fill=fill)
         state = args[4].shape
     x = args[0]
     B, H, T, D = x.shape

@@ -47,7 +47,8 @@ kernel (and SDPA beside flash and ``attention_cached``) two ways:
 at the training shapes ``BWD_TIMED``, each that the tree's
 ``checks.BWD_CASES`` and head dims hold, with SDPA's backward beside it;
 ``wkv6_bwd``, ``ssd_bwd``: the recurrences' backward at rwkv6-3b's and
-zamba2-7b's training shapes, ``checks.RECUR_BWD_CASES``); a tree from
+zamba2-7b's training shapes, ``checks.RECUR_BWD_CASES``, with each
+kernel's time per call from ``torch.profiler``, ``phases_ms``); a tree from
 before ``attention_cached`` or a backward needs ``--only`` without its
 group.  Prints
 one JSON object per version and round, then a summary; writes both to
@@ -311,7 +312,8 @@ def child(label: str, only: str = "") -> dict:
                 float((a.float() - e.float()).abs().max())
                 / float(e.float().abs().max())
                 for a, e in zip(call(), plain(*args, dout, dS))),
-            **_times(torch, call), "graph_ms": graph_ms(torch, call)}
+            **_times(torch, call), "graph_ms": graph_ms(torch, call),
+            "phases_ms": kernel_ms(torch, call)}
         del args, dout, dS
     return res
 
@@ -343,6 +345,29 @@ ABLATIONS = {
          "      uint32_t sh[DP / 16][4]")]),
     "wkv6_no_copies": ("wkv6.cu", [("    if (c + 1 < nc) load(c + 1);\n",
                                     "    if (c + 1 < 1) load(c + 1);\n")]),
+    # the bf16 wkv6 backward's outputs phase without one part: the exact
+    # 8 x 8 diagonal quadrants (of dr, dk and A, the bonus; or of A and
+    # the bonus alone), or the products over the step tiles before and
+    # after a warp's rows
+    "wkv6_bwd_no_exact": ("wkv6_bwd.cu", [
+        ("      for (int i = 2; i < 8; ++i) {\n",
+         "      for (int i = 2; i < 2; ++i) {\n"),
+        ("    if (lane < 28) {\n", "    if (lane < 0) {\n"),
+        ("    if (lane < 16) {\n", "    if (lane < 0) {\n")]),
+    "wkv6_bwd_no_exact_a": ("wkv6_bwd.cu", [
+        ("    if (lane < 28) {\n", "    if (lane < 0) {\n"),
+        ("    if (lane < 16) {\n", "    if (lane < 0) {\n")]),
+    "wkv6_bwd_no_off": ("wkv6_bwd.cu", [
+        ("    if (warp < 3) {\n      uint32_t kt",
+         "    if (warp < 0) {\n      uint32_t kt"),
+        ("    if (warp > 0) {\n", "    if (warp > 3) {\n"),
+        ("    if (warp < 3) {\n      zero(acc);",
+         "    if (warp < 0) {\n      zero(acc);")]),
+    # the bf16 ssd backward's outputs phase held to 168 registers, three
+    # blocks an SM
+    "ssd_bwd_grads_3_blocks": ("ssd_bwd.cu", [
+        ("__launch_bounds__(NTH, 2)\nssd_bwd_chunk_grads",
+         "__launch_bounds__(NTH, 3)\nssd_bwd_chunk_grads")]),
     # the bf16 flash backward's dK/dV warps taking 16 queries at a time at
     # every head dim, or 64 up to D = 64; right outputs
     "bwd_q_step_16": ("flash_attention_bwd.cu", [
@@ -412,6 +437,24 @@ def _versions(args) -> dict:
             (dst / "src/repro_torch/kernels/csrc" / source).write_text(text)
         trees[name] = dst
     return trees
+
+
+def kernel_ms(torch, fn, n: int = 5) -> dict:
+    """The device time per call of each kernel that ``fn`` launches, by
+    name, from ``torch.profiler`` over ``n`` calls after one untimed."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        ms = float(getattr(e, "self_device_time_total", 0.0)) / 1e3 / n
+        if ms > 0:
+            out[e.key[:80]] = out.get(e.key[:80], 0.0) + ms
+    return out
 
 
 def graph_ms(torch, fn, n: int = 100) -> float:

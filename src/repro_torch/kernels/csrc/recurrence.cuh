@@ -1,7 +1,8 @@
-// Device helpers shared by the sequential-recurrence kernels (wkv6.cu,
-// ssd.cu and their backwards, wkv6_bwd.cu, ssd_bwd.cu). Each holds its
-// state in registers, one column (or row) per group of four adjacent
-// lanes, and stages each tile of steps in shared memory.
+// Device helpers shared by the sequential-recurrence kernels (the f32
+// routes of wkv6.cu, ssd.cu and of their backwards, wkv6_bwd.cu,
+// ssd_bwd.cu). Each holds its state in registers, one column (or row) per
+// group of four adjacent lanes, and stages each tile of steps in shared
+// memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,9 +37,9 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// The backward sweeps' accumulation type: f64 for f32 inputs, whose
-// prefix sums cancel where the decay is strong (wkv6_bwd.cu's header),
-// f32 for bf16 inputs.
+// The backward sweeps' accumulation type: f64 for their f32 inputs, whose
+// prefix sums over all of T cancel where the decay is strong (wkv6_bwd.cu's
+// header). (bf16 inputs take the chunked routes, which sweep nothing.)
 template <typename T>
 struct Acc {
   using type = float;

@@ -3,17 +3,18 @@
 
 No TPU kernel answers to it: the reference differentiates its XLA
 ``wkv6_chunked`` by autodiff.  ``WKV6.forward`` launches the ``wkv6``
-kernel and saves its inputs; ``backward`` launches this kernel: a reverse
-sweep carrying the state's gradient (dk, dv, dS0), a forward sweep carrying
-the state (dr, and dlw by a prefix sum), and a sum of du over the batch,
-all on the CUDA cores, with every decay factor ≤ 1; the sweeps accumulate
-in f32 for bf16 inputs and in f64 for f32 inputs (the prefix sum cancels
-where the decay is strong).  See the note at the top of the ``.cu`` file
-for the design.
+kernel and saves its inputs; ``backward`` launches this kernel.  bf16
+inputs take the chunked form on the tensor cores, chunks of 64 steps in
+parallel: each chunk's own state contributions, a scan over the chunks for
+the boundary states, then every chunk's gradients, dlw by a prefix sum
+re-anchored at each chunk, and du summed over the batch and the chunks
+(four launches).  f32 inputs take two step sweeps on the CUDA cores
+accumulating in f64 (three launches).  See the note at the top of the
+``.cu`` file for the designs.
 
 Takes CUDA tensors only; on the CPU, autograd differentiates
 ``ref.wkv6_ref`` and ``ref.wkv6_bwd_ref`` states the formulas.
-``LAUNCHES`` counts calls of the backward (three kernels each).
+``LAUNCHES`` counts calls of the backward.
 """
 from __future__ import annotations
 
@@ -27,24 +28,27 @@ from repro_torch.kernels import wkv6 as _wkv6
 from repro_torch.kernels.flash_attention_bwd import grad_like
 
 _SOURCE = "wkv6_bwd.cu"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the sweeps' accumulation type, and their scratch's (the ``.cu`` header)
-ACC_DTYPES = {torch.float32: torch.float64, torch.bfloat16: torch.float32}
+_DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = _wkv6.HEAD_DIMS
+CHUNK = 64          # the bf16 route's chunk (``L`` in the ``.cu`` file)
 
 LAUNCHES: Dict[str, int] = {"wkv6_bwd": 0}
-_FN = None
 
 
-def _launch_fn():
-    global _FN
-    if _FN is None:
-        fn = _build.load(_SOURCE).wkv6_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+def _fn(name: str, n_ptr: int):
+    fn = getattr(_build.load(_SOURCE), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def aligned(t: torch.Tensor) -> bool:
+    """Whether ``t``'s rows arrive in 16-byte pieces: the base pointer and
+    every stride but the last a multiple of 16 bytes."""
+    step = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and not any(
+        st % step for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1)
 
 
 def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -57,10 +61,12 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     over the batch, and dS0 f32.
 
     r, k, v, lw and d_out take any strides whose last dimension is
-    contiguous (a ``d_out`` that is not is copied first); d_out is in r's
-    dtype, lw is read as f32.
+    contiguous (a ``d_out`` that is not is copied first; bf16: 16-byte
+    aligned rows of r, k, v and lw, and a ``d_out`` without them is
+    copied); d_out is in r's dtype, lw is read as f32.
     """
-    if d_out.dim() == 4 and d_out.stride(-1) != 1:
+    if d_out.dim() == 4 and (d_out.stride(-1) != 1 or (
+            d_out.dtype == torch.bfloat16 and not aligned(d_out))):
         d_out = d_out.contiguous()
     dev = r.device
     for name, t in (("r", r), ("k", k), ("v", v), ("lw", lw), ("u", u),
@@ -72,7 +78,7 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.dtype not in _DTYPES or any(t.dtype != r.dtype
                                      for t in (k, v, d_out)):
         raise ValueError(f"wkv6_bwd: r, k, v, d_out must share one of "
-                         f"{list(_DTYPES)}, got {r.dtype}, {k.dtype}, "
+                         f"{_DTYPES}, got {r.dtype}, {k.dtype}, "
                          f"{v.dtype}, {d_out.dtype}")
     if r.dim() != 4:
         raise ValueError(f"wkv6_bwd: r must be (B, H, T, Dh), got "
@@ -93,31 +99,52 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(s0.shape)} / dS_T do not match r "
                          f"{tuple(r.shape)}")
     lw = lw.float()
+    bf16 = r.dtype == torch.bfloat16
+    if bf16:
+        for name, t in (("r", r), ("k", k), ("v", v), ("lw", lw)):
+            if not aligned(t):
+                raise ValueError(f"wkv6_bwd: {name} needs a 16-byte aligned "
+                                 f"base and strides, got pointer "
+                                 f"{t.data_ptr():#x} strides {t.stride()}")
     u = u.float().contiguous()
     s0 = s0.float().contiguous()
     if dS_T is not None:
         dS_T = dS_T.float().contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
     dr, dk, dv = grad_like(r), grad_like(k), grad_like(v)
     dlw = grad_like(lw, torch.float32)
-    du = torch.empty((H, Dh), dtype=torch.float32, device=dev)
-    ds0 = torch.empty((B, H, Dh, Dh), dtype=torch.float32, device=dev)
-    du_part = torch.empty((B, H, Dh), dtype=torch.float32, device=dev)
-    acc = dict(dtype=ACC_DTYPES[r.dtype], device=dev)
-    kdk = torch.empty((B, H, T, Dh), **acc)     # k ⊙ dk̃, launch 1 → 2
-    c0 = torch.empty((B, H, Dh), **acc)         # each row's ⟨s0, dS0⟩
+    du = torch.empty((H, Dh), **f32)
+    ds0 = torch.empty((B, H, Dh, Dh), **f32)
     strides = (ctypes.c_longlong * 27)(
         *(s for t in (r, k, v, lw, d_out, dr, dk, dv, dlw)
           for s in t.stride()[:3]))
-    status = _launch_fn()(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-        u.data_ptr(), s0.data_ptr(), d_out.data_ptr(),
-        dS_T.data_ptr() if dS_T is not None else None, dr.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(), du.data_ptr(),
-        ds0.data_ptr(), du_part.data_ptr(), kdk.data_ptr(), c0.data_ptr(),
-        ctypes.addressof(strides),
-        _DTYPES[r.dtype], B, H, T, Dh,
+    ptrs = [r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+            u.data_ptr(), s0.data_ptr(), d_out.data_ptr(),
+            dS_T.data_ptr() if dS_T is not None else None, dr.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(), du.data_ptr(),
+            ds0.data_ptr()]
+    if bf16:
+        nc = -(-T // CHUNK)
+        # each chunk's dS then S0, its dG then Ge; cw of its last step;
+        # dlw at its first step; its share of du
+        scratch = [torch.empty((B, H, nc, 64, 64), **f32),
+                   torch.empty((B, H, nc, 64, 64), **f32),
+                   torch.empty((B, H, nc, 64), **f32),
+                   torch.empty((B, H, nc, 64), **f32),
+                   torch.empty((B, nc, H, Dh), **f32)]
+        name = "wkv6_bwd_chunked_launch"
+    else:
+        scratch = [torch.empty((B, H, Dh), **f32),           # du's shares
+                   torch.empty((B, H, T, Dh), dtype=torch.float64,
+                               device=dev),                  # k ⊙ dk̃
+                   torch.empty((B, H, Dh), dtype=torch.float64,
+                               device=dev)]                  # ⟨s0, dS0⟩
+        name = "wkv6_bwd_launch"
+    ptrs += [t.data_ptr() for t in scratch]
+    status = _fn(name, len(ptrs) + 1)(
+        *ptrs, ctypes.addressof(strides), B, H, T, Dh,
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(status, "wkv6_bwd_launch")
+    _build.check(status, name)
     LAUNCHES["wkv6_bwd"] += 1
     return dr, dk, dv, dlw, du, ds0
 
