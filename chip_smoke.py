@@ -56,6 +56,15 @@ each of granite-3-2b, hubert-xlarge, rwkv6-3b, granite-moe-3b-a800m
 layers) on the card is held against the same step on the CPU; the
 launcher runs 20 steps and its checkpoint restores bitwise.
 
+Mesh (``mesh_phase``, on hubert-xlarge's features): the one-shot round
+as a collective, ``FedSession.run_sharded`` on one NCCL rank, its wire
+all-gather held to Eqs. 9-11 byte for byte, then ``fedpft_dryrun`` at its
+defaults.  Dry run (``dryrun_phase``, last): ``launch.dryrun.run_pair``
+for every arch × input shape at full width (2 layers, 6 for zamba2-7b;
+one shard of the production mesh's rows), one line each: ``ok`` with the
+step's time, peak memory and counted operations, or ``skip`` with its
+reason.
+
 Prints one JSON object per line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and the
 script exits nonzero.  Without a CUDA card, or without the rest of the
@@ -2332,6 +2341,136 @@ def slice6_paths(torch, dev, card, kept):
     return out
 
 
+def mesh_phase(torch, dev, card, kept):
+    """The one-shot round as a collective on one NCCL rank: hubert-xlarge's
+    features (4 iid clients × 1000 × 1280, 10 classes) through
+    ``FedSession.run_sharded`` (diag K = 10, bf16 wire, fused head), the
+    wire all-gather held to Eqs. 9-11 exactly; then ``fedpft_dryrun`` at
+    its defaults (16 clients × 1024 × 64, 8 classes, K 5, diag).  A failed
+    NCCL start fails the phase.  Returns the launch counts."""
+    import torch.distributed as dist
+
+    from repro_torch import data as D
+    from repro_torch.core import distributed as DF
+    from repro_torch.core import fedpft as FP
+    from repro_torch.core import gmm as G
+    from repro_torch.core import head as H
+    from repro_torch.fl import api as A
+    from repro_torch.kernels import ops
+    from repro_torch.launch import fedpft_dryrun as FD
+    from repro_torch.launch import mesh as LM
+
+    feats, feats_t, y, yt = (kept[k] for k in ("feats", "feats_t", "y",
+                                               "yt"))
+    C, K, d = 10, 10, int(feats.shape[1])
+    parts = D.iid_shards(len(y), 4)
+    clients = [(feats[p], y[p]) for p in parts]
+    started = LM.ensure_process_group(dev)
+    t0 = time.perf_counter()
+    mesh = LM.make_sim_mesh(1, device=dev)
+    init_s = time.perf_counter() - t0
+    sess = A.FedSession(n_classes=C, summarizer=A.GMMSummarizer(
+        G.GMMConfig(K, "diag")), shards=1)
+
+    def round_():
+        with DF.record_collectives() as tally:
+            res = sess.run_sharded(torch.stack([f for f, _ in clients]),
+                                   torch.stack([t for _, t in clients]),
+                                   seed=0)
+        return res, tally
+    (res, tally), dt, counts, peak = measured(torch, ops, round_)
+    head_c, _ = FP.centralized_baseline(clients, C, FP.FedPFTConfig(),
+                                        seed=0)
+    acc_c = float(H.accuracy(head_c, feats_t, yt))
+    acc = float(H.accuracy(res.model, feats_t, yt))
+    payload = sum(len(m.payload) for m in res.messages)
+    want = DF.expected_wire_bytes("diag", d, K, C, len(clients))
+    fd_rows, fd = FD.run(device=dev)
+    # since ``measured`` zeroed them: the round, then fedpft_dryrun
+    all_counts = ops.launch_counts()
+    line = {"phase": "mesh", "card": card, "backend": dist.get_backend(),
+            "world": dist.get_world_size(), "mesh": LM.axes_of(mesh),
+            "group_init_s": init_s, "phase_s": dt,
+            "round_phase_s": res.info["phase_s"], "acc": acc,
+            "acc_centralized": acc_c, "comm_bytes": res.info["comm_bytes"],
+            "payload_bytes": payload,
+            "mesh_wire_bytes": res.info["mesh_wire_bytes"],
+            "all_gather_wire_bytes": tally["by_tag"]["wire"],
+            "all_gather_bytes_by_tag": tally["by_tag"],
+            "expected_wire_bytes": want, "launches": launch_fields(counts),
+            "peak_bytes": peak, "fedpft_dryrun": fd_rows,
+            "fedpft_dryrun_ratio_wire": fd["ratio_wire"],
+            "fedpft_dryrun_ratio_raw": fd["ratio_raw"],
+            "phase_launches": launch_fields(all_counts)}
+    emit(line)
+    if started:
+        dist.destroy_process_group()
+    if not (acc > acc_c - 0.08 and res.info["comm_bytes"] == payload
+            and res.info["mesh_wire_bytes"] == want
+            and tally["by_tag"]["wire"] == want
+            and counts["estep_fused"] > 0
+            and launch_fields(counts)["plain_on_cuda"] == 0
+            and fd["ratio_wire"] == 1.0 and fd["ratio_raw"] == 1.0
+            and launch_fields(all_counts)["plain_on_cuda"] == 0
+            and line["backend"] == "nccl"):
+        raise AssertionError(f"mesh: {line}")
+    return {"mesh": all_counts}
+
+
+# the dryrun phase: every arch × shape pair's step at full width (depth
+# cut, one shard's rows: launch/dryrun.py), one line each
+DRYRUN_KERNELS = ("flash_attention", "flash_attention_bwd",
+                  "attention_cached", "wkv6", "wkv6_bwd", "ssd", "ssd_bwd")
+
+
+def dryrun_phase(torch, card):
+    """``launch.dryrun.run_pair`` for every pair, each arch's weights drawn
+    once.  Every row ``ok`` or ``skip`` with its reason; the phase's
+    launches reach every attention and recurrence kernel with its
+    backward, and no plain version runs on the card."""
+    import gc
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models.config import INPUT_SHAPES
+
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # what earlier phases leave on the card (a pair's rows halve when its
+    # step does not fit in the rest)
+    at_start = {"allocated": torch.cuda.memory_allocated(),
+                "reserved": torch.cuda.memory_reserved(),
+                "free": torch.cuda.mem_get_info()[0]}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = []
+    for arch in sorted(ARCHS):
+        params = DR.init_weights(arch)
+        for shape in INPUT_SHAPES:
+            row = DR.run_pair(arch, shape, params=params, card=card,
+                              verbose=False)
+            emit({"phase": "dryrun", **row})
+            rows.append(row)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts = ops.launch_counts()
+    plain = launch_fields(counts)["plain_on_cuda"]
+    status = {s: sum(r["status"] == s for r in rows)
+              for s in ("ok", "skip", "fail")}
+    emit({"phase": "dryrun_summary", "card": card, **status,
+          "s": time.perf_counter() - t0, "memory_at_start": at_start,
+          "plain_on_cuda": plain,
+          "launches": {k: counts[k] for k in DRYRUN_KERNELS}})
+    if (status["fail"] or len(rows) != status["ok"] + status["skip"]
+            or plain or not all(counts[k] > 0 for k in DRYRUN_KERNELS)):
+        raise AssertionError(f"dryrun: {status}, plain {plain}, "
+                             f"{ {k: counts[k] for k in DRYRUN_KERNELS} }")
+    return {"dryrun": counts}
+
+
 # training: Adam under the launcher's cosine schedule (peak 3e-4
 # over 200 steps, 20 of warmup: its first steps), each model's steps on
 # one repeated batch
@@ -2700,11 +2839,16 @@ def main() -> int:
         if keep is not None:
             counts.update(slice_paths(torch, dev, card, keep))
             counts.update(slice6_paths(torch, dev, card, keep))
+            counts.update(mesh_phase(torch, dev, card, keep))
             keep.clear()
     counts.update(serving_paths(torch, dev, card))
     for name, spec in WIDE.items():
         counts.update(wide_phase(torch, dev, card, name, **spec))
     counts.update(train_phase(torch, dev, card))
+    counts.update(dryrun_phase(torch, card))
+    import torch.distributed as dist
+    if dist.is_initialized():           # the launcher's host mesh
+        dist.destroy_process_group()
 
     sources = {"estep_fused": ("src/repro_torch/kernels/csrc/gmm_estep.cu",
                                "src/repro/kernels/gmm_estep.py:177"),

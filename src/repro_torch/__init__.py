@@ -29,7 +29,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     """The device an entry point runs on: ``cuda`` unless asked otherwise.
 
     Raises when CUDA is requested (explicitly or by default) and absent —
-    the port never falls back to the CPU on its own.  On CUDA, TF32 is
+    the port never falls back to the CPU on its own.  ``meta`` is
+    accepted for shape-only work (``launch.input_specs``' shapes and the
+    operation count of ``launch.hlo_cost``): a meta tensor takes the
+    kernels' plain versions, which is all a count needs.  On CUDA, TF32 is
     switched off: the reference holds f32, and the E-step's
     x²·inv − 2x·(μ·inv) cancels terms that TF32's 10-bit mantissa cannot
     carry to the 3e-4 tolerance it is held to.
@@ -42,6 +45,6 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "run the plain PyTorch path on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"repro_torch: unsupported device {dev}")
     return dev

@@ -47,8 +47,15 @@ transient client failures and quarantines malformed messages;
 ``run(..., faults=FaultPlan(...))`` runs the streaming round under a
 deterministic fault schedule (``fl.faults``).
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: mesh execution (item 9).
+Mesh execution (DESIGN.md §5): ``FedSession(mesh=…)`` or ``shards=n``
+runs the round as ``torch.distributed`` collectives
+(:meth:`FedSession.run_sharded`): each rank of the "data" axis fits its
+clients as one batched EM, the bf16 wire crosses the mesh in one
+all-gather (``core.distributed.fedpft_transfer``), and every rank
+decodes it through the host codec (:func:`messages_from_wire`) and
+trains the same head.  A materializing server transforms each bucket's
+rows rank by rank (:func:`_shard_bucket`) from draws every rank makes
+whole, so the samples do not depend on the rank count.
 """
 from __future__ import annotations
 
@@ -60,6 +67,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import distributed as DF
 from repro_torch.core import dp as DP
 from repro_torch.core import gmm as G
 from repro_torch.core import head as H
@@ -75,7 +83,7 @@ __all__ = [
     "SYNTHESIS_MODES", "encode_message", "decode_payload", "stack_messages",
     "fused_slot_stack", "synthesize_batched", "synthesize_chunks",
     "synthesize_group_chunks", "synthesize_groups", "synthesize_looped",
-    "round_generator",
+    "round_generator", "messages_from_wire",
 ]
 
 SYNTHESIS_MODES = ("fused", "streamed", "pooled")
@@ -83,16 +91,10 @@ _WIRE_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
                 "float32": torch.float32}
 _GMM_FIELDS = G.WIRE_FIELDS
 _HEAD_FIELDS = ("w", "b")
-_LATER = "waits for its slice (ROADMAP, port queue: {})"
-_MESH_ITEM = "item 9, mesh, launch and analysis"
 
 # a bucket's draws: (its global slot ids, its padded S) → {"comp": (G_b, S),
 # "eps": (G_b, S, d)}
 DrawFn = Callable[[np.ndarray, int], Dict[str, torch.Tensor]]
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} " + _LATER.format(item))
 
 
 # ---------------------------------------------------------------------------
@@ -334,6 +336,61 @@ def stack_messages(messages: Sequence[ClientMessage]
             for f in _GMM_FIELDS}
 
 
+def messages_from_wire(wire: Dict[str, torch.Tensor], counts, cov_type: str,
+                       n_classes: int, codec: QuantizedCodec,
+                       logliks=None, validate: bool = False):
+    """Replicated mesh wire → one :class:`ClientMessage` per client.
+
+    ``wire`` is what ``core.distributed.fedpft_transfer``'s all-gather
+    left on every rank: ``gmm.pack_wire``'s bf16 (I, C, K, …) layout,
+    full covariances tril-packed.  The mesh path and the codec share one
+    layout (``gmm.WIRE_FIELDS`` / ``gmm.tril_pack``), so this is
+    ``gmm.unpack_wire`` and then the :func:`encode_message` a host client
+    runs: with a bf16 codec each present class's payload scalars are the
+    bits that crossed the mesh.  ``comm_bytes`` keeps the host codec's
+    meaning (Eqs. 9-11 over present classes); the padded collective also
+    carries absent classes' placeholders, which ``run_sharded`` reports
+    as ``info["mesh_wire_bytes"]``.
+
+    ``validate=True`` is the mesh path's quarantine gate (DESIGN.md §13):
+    a client whose present classes carry NaN/Inf becomes a
+    ``fl.resilience.Rejection`` instead of a message, accounted at the
+    bytes its present classes would have taken on the host wire, and the
+    return is ``(messages, rejections)``.
+    """
+    counts = np.asarray(torch.as_tensor(counts).cpu()).astype(np.int64)
+    I = counts.shape[0]
+    d = int(wire["mu"].shape[-1])
+    unpacked = G.unpack_wire({k: torch.as_tensor(v) for k, v in wire.items()},
+                             cov_type, d)
+    if logliks is None:
+        logliks = np.zeros((I, n_classes), np.float32)
+    logliks = np.asarray(torch.as_tensor(logliks).float().cpu())
+    messages: List[ClientMessage] = []
+    rejections: List[RS.Rejection] = []
+    for i in range(I):
+        params = {k: v[i] for k, v in unpacked.items()}
+        if validate:
+            present = np.flatnonzero(counts[i] > 0)
+            rows = torch.as_tensor(present, device=params["mu"].device)
+            bad = G.nonfinite_fields({k: params[k][rows]
+                                      for k in _GMM_FIELDS})
+            if bad:
+                K = params["mu"].shape[-2]
+                rejections.append(RS.Rejection(
+                    client_id=i, reason="non_finite",
+                    detail=f"mesh wire fields {bad} carry NaN/Inf",
+                    comm_bytes=G.comm_bytes(cov_type, d, K, len(present),
+                                            codec.bytes_per_scalar)))
+                continue
+        messages.append(encode_message(
+            params, counts[i], logliks[i], kind="gmm", cov_type=cov_type,
+            n_classes=n_classes, codec=codec))
+    if validate:
+        return messages, rejections
+    return messages
+
+
 def fused_slot_stack(batch: Dict[str, torch.Tensor], counts,
                      samples_per_class: Optional[int] = None):
     """The planner's slot-table rows gathered from a stacked (M, C, K, …)
@@ -361,8 +418,8 @@ def fused_slot_stack(batch: Dict[str, torch.Tensor], counts,
 
 def _sample_stacked(pi, mu, cov, S: int, cov_type: str, *,
                     generator: Optional[torch.Generator] = None,
-                    draws: Optional[Dict[str, torch.Tensor]] = None
-                    ) -> torch.Tensor:
+                    draws: Optional[Dict[str, torch.Tensor]] = None,
+                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """S draws from every mixture of a flat (G, K, …) stack → (G, S, d).
 
     Component ∝ pi, Gaussian through ``gmm.sampling_factor`` — the same
@@ -371,6 +428,9 @@ def _sample_stacked(pi, mu, cov, S: int, cov_type: str, *,
     and ``eps`` (G, S, d); the reference draws them from
     ``fold_in(key, global slot id)``.  Full covariance groups the draws by
     (slot, component), never gathering a d × d factor per draw.
+    ``rows`` (indices into the G slots): the draws are made for all G,
+    as without it, and only these rows are transformed → (len(rows), S,
+    d), a mesh rank's share (:func:`_shard_bucket`).
     """
     Gn, d = mu.shape[0], mu.shape[-1]
     dev = mu.device
@@ -382,9 +442,26 @@ def _sample_stacked(pi, mu, cov, S: int, cov_type: str, *,
     else:
         comp = draws["comp"].to(dev).long()
         eps = draws["eps"].to(dev, torch.float32)
-    slot = torch.arange(Gn, device=dev)[:, None].expand(Gn, S)
+    if rows is not None:
+        comp, eps, mu, cov = comp[rows], eps[rows], mu[rows], cov[rows]
+    n = mu.shape[0]
+    slot = torch.arange(n, device=dev)[:, None].expand(n, S)
     fac = G.sampling_factor(cov, cov_type)                    # (G, K, …)
     return G.slot_gaussian(slot, comp, eps, mu, fac, cov_type)
+
+
+def _shard_bucket(mesh, n_slots: int, device) -> torch.Tensor:
+    """This rank's rows of a bucket of ``n_slots`` slots laid out over the
+    mesh's "data" axis: the bucket is padded to a multiple of the axis
+    (repeating the last slot; the caller trims the padding rows off the
+    gathered samples) and rank r takes the r-th run of ⌈n_slots / n⌉.
+    Every rank draws the whole bucket (:func:`_sample_stacked`), so the
+    gathered samples are the 1-rank samples bit for bit."""
+    n = DF.data_axis_size(mesh, where="synthesize_chunks")
+    per = -(-n_slots // n)
+    r = mesh.get_local_rank("data")
+    return torch.arange(r * per, (r + 1) * per,
+                        device=device).clamp_max(n_slots - 1)
 
 
 def _as_batch(batch, counts):
@@ -417,10 +494,10 @@ def synthesize_chunks(batch: Dict[str, torch.Tensor], counts, cov_type: str,
     returns a bucket's draws for ``_sample_stacked``.  Returns (chunks,
     plan): compacted (feats (n, d), labels (n,)) pairs in ascending-bucket
     order, never empty (an all-zero cohort gives one (0, d) chunk).
-    ``mesh`` waits for queue item 9.
+    ``mesh``: each rank transforms its rows of every bucket
+    (:func:`_shard_bucket`) and the samples are all-gathered; every rank
+    returns the same chunks, those of a run without the mesh.
     """
-    if mesh is not None:
-        raise _later("mesh-sharded synthesis", _MESH_ITEM)
     counts, batch = _as_batch(batch, counts)
     M, C = counts.shape
     if plan is None:
@@ -438,10 +515,15 @@ def synthesize_chunks(batch: Dict[str, torch.Tensor], counts, cov_type: str,
     chunks = []
     for b in plan.buckets:
         slots = torch.as_tensor(b.slots, device=dev)
+        rows = None if mesh is None else _shard_bucket(mesh, len(b.slots),
+                                                       dev)
         samples = _sample_stacked(
             flat["pi"][slots], flat["mu"][slots], flat["cov"][slots], b.S,
             cov_type, generator=generator,
-            draws=None if draws is None else draws(b.slots, b.S))
+            draws=None if draws is None else draws(b.slots, b.S), rows=rows)
+        if mesh is not None:
+            samples = DF.all_gather(samples, mesh.get_group("data"),
+                                    "samples")[:len(b.slots)]
         keep = np.flatnonzero(np.arange(b.S)[None, :] < b.n_eff[:, None])
         labels = np.repeat((b.slots % C).astype(np.int64), b.S)[keep]
         feats = samples.reshape(len(b.slots) * b.S, d)[
@@ -754,7 +836,10 @@ class FedSession:
     ``program_cache`` (a ``launch.aot_cache.ProgramCache``) serves the
     fused server from captured round programs; ``resilience`` (an
     ``fl.resilience.ResilienceConfig``) retries transient client failures
-    and quarantines malformed messages.
+    and quarantines malformed messages.  ``mesh`` (a ``DeviceMesh`` with a
+    "data" axis) or ``shards=n`` (``launch.mesh.make_sim_mesh(n)``) runs
+    the round over ``torch.distributed`` (:meth:`run_sharded`), the
+    clients' draws seeded from ``transfer_seed``.
     """
     n_classes: int
     summarizer: Any = GMMSummarizer()
@@ -771,12 +856,9 @@ class FedSession:
     ingest: Optional[IG.IngestConfig] = None
     program_cache: Optional[Any] = None
     resilience: Optional[RS.ResilienceConfig] = None
-    mesh: Any = None
-    shards: Optional[int] = None
-
-    def _check_supported(self) -> None:
-        if self.mesh is not None or self.shards is not None:
-            raise _later("mesh execution", _MESH_ITEM)
+    mesh: Any = None               # DeviceMesh with a "data" axis, or None
+    shards: Optional[int] = None   # make_sim_mesh(shards)
+    transfer_seed: int = 0         # per-client seed base of the mesh round
 
     def summarizer_for(self, i: int):
         if self.client_summarizers is not None:
@@ -942,7 +1024,11 @@ class FedSession:
 
     def server_aggregate(self, messages: Sequence[ClientMessage], *,
                          generator: torch.Generator,
-                         device: torch.device) -> SessionResult:
+                         device: torch.device, mesh=None) -> SessionResult:
+        """The server phase on decoded messages.  ``mesh``: a materializing
+        server splits each bucket's transform over the mesh's ranks
+        (:func:`synthesize_chunks`); the fused server and head training
+        run whole on every rank, the same draws on each."""
         if not messages:
             raise ValueError("server_aggregate needs at least one message")
         info: Dict = {"comm_bytes": sum(m.comm_bytes for m in messages)}
@@ -978,7 +1064,7 @@ class FedSession:
         info["synthesis"] = mode
         chunks, plans = synthesize_group_chunks(
             [(m.params, m.counts, m.header.cov_type) for m in messages],
-            self.samples_per_class, generator=generator)
+            self.samples_per_class, mesh=mesh, generator=generator)
         info["synthesis_plans"] = plans
         if sum(int(f.shape[0]) for f, _ in chunks) == 0:
             return self._empty_cohort_result(
@@ -1218,6 +1304,11 @@ class FedSession:
                 "FedSession.run(faults=...): chaos rounds stream through "
                 "the broker — set ingest=IngestConfig(...) so losses "
                 "degrade coverage instead of failing the round")
+        if self.mesh is not None or self.shards is not None:
+            raise NotImplementedError(
+                "FedSession.run(faults=...): chaos injection wraps the "
+                "host wire; the mesh round has no per-message delivery "
+                "to perturb")
         self._check_ingest_mode()
         self._check_streamable("FedSession.run(faults=...)")
         M = len(client_datasets)
@@ -1273,6 +1364,137 @@ class FedSession:
                              "ensemble or fedbe")
         return SessionResult(model=model, info=info, messages=list(messages))
 
+    # -- mesh execution (DESIGN.md §5) --------------------------------------
+
+    def _resolve_mesh(self, device: torch.device):
+        if self.mesh is not None:
+            n = DF.data_axis_size(self.mesh, where="FedSession")
+            if self.shards is not None and self.shards != n:
+                raise ValueError(
+                    f"FedSession: mesh= is {n}-way on 'data' but shards="
+                    f"{self.shards} — they disagree; pass one, or make "
+                    "them match")
+            return self.mesh
+        if self.shards is None:
+            raise ValueError(
+                "FedSession: sharded execution needs mesh= (a DeviceMesh "
+                "with a 'data' axis) or shards=n (builds "
+                "launch.mesh.make_sim_mesh(n) over the process group)")
+        from repro_torch.launch.mesh import make_sim_mesh
+        return make_sim_mesh(self.shards, device=device)
+
+    def _check_sharded_config(self, I: int, n_shards: int) -> None:
+        """Every mesh-mode precondition, checked before any device work."""
+        DF.validate_cohort(I, n_shards, where="FedSession(sharded)")
+        if self.client_summarizers is not None:
+            raise NotImplementedError(
+                "FedSession(sharded): heterogeneous client_summarizers "
+                "can't batch into one batched EM per rank — run the host "
+                "Star path for mixed-K/cov cohorts (paper §6.3)")
+        if self.summarizer.kind != "gmm":
+            raise NotImplementedError(
+                "FedSession(sharded): the mesh round fits GMM summaries "
+                "(core.distributed.fedpft_transfer); head-summary "
+                "baselines run on the host Star path")
+        if self.dp is not None:
+            raise NotImplementedError(
+                "FedSession(sharded): the DP mechanism (Theorem 4.1) is "
+                "applied host-side before encoding — run the host Star "
+                "path with dp=, or privatize before calling run_sharded")
+        if not isinstance(self.topology, Star):
+            raise NotImplementedError(
+                f"FedSession(sharded): the one-shot all-gather IS the Star "
+                f"round; {self.topology.name!r} topologies are host-only")
+        if self.codec.dtype != "bfloat16":
+            raise ValueError(
+                f"FedSession(sharded): the mesh wire is bf16 "
+                f"(gmm.pack_wire) but the codec is {self.codec.dtype!r} — "
+                "comm accounting would not match the collective. Use "
+                "QuantizedCodec('bfloat16') or the host path for fp16/fp32 "
+                "wire ablations")
+
+    def run_sharded(self, feats, labels, *, seed: int = 0,
+                    device: Optional[str] = None) -> SessionResult:
+        """One-shot round as mesh collectives.  Entry point: runs on
+        ``cuda`` unless ``device="cpu"``.
+
+        ``feats``: (I, N, d) — I clients, N padded samples; ``labels``:
+        (I, N) with −1 padding; every rank passes the whole cohort.
+        Client phase: each rank of the "data" axis fits its I / n clients'
+        classwise GMMs as one batched EM (client i's draws seeded
+        ``transfer_seed + i``) and all-gathers the bf16 wire — that
+        collective is the round.  Server phase: the replicated wire
+        decodes through the host codec's layout
+        (:func:`messages_from_wire`), and :meth:`server_aggregate` runs
+        on every rank from ``round_generator(seed, 0)``.  Results do not
+        depend on the rank count.  ``info`` adds ``n_shards``,
+        ``mesh_axes``, ``mesh_wire_bytes`` (what the wire all-gather
+        moved in all) and ``phase_s``.
+        """
+        from repro_torch.launch.mesh import axes_of
+        dev = resolve_device(device)
+        I = int(feats.shape[0])
+        if self.mesh is None and self.shards is not None:
+            # divisibility is checkable before building the mesh
+            DF.validate_cohort(I, self.shards, where="FedSession(sharded)")
+        mesh = self._resolve_mesh(dev)
+        n_shards = DF.data_axis_size(mesh, where="FedSession(sharded)")
+        self._check_sharded_config(I, n_shards)
+        feats = self._normalize(torch.as_tensor(feats).to(dev).float())
+        labels = torch.as_tensor(labels).to(dev)
+        t0 = time.perf_counter()
+        g = self.summarizer.gmm
+        wire, counts, lls = DF.fedpft_transfer(mesh, feats, labels,
+                                               self.n_classes, g,
+                                               seed=self.transfer_seed)
+        _sync(dev)
+        t1 = time.perf_counter()
+        counts = counts.cpu().numpy().astype(np.int64)
+        if self.min_class_count:
+            counts = np.where(counts >= self.min_class_count, counts, 0)
+        validate = self.resilience is not None and self.resilience.validate
+        decoded = messages_from_wire(wire, counts, g.cov_type,
+                                     self.n_classes, self.codec,
+                                     logliks=lls, validate=validate)
+        messages, wire_rejs = decoded if validate else (decoded, [])
+        t2 = time.perf_counter()
+        generator = round_generator(seed, 0, dev)
+        if not messages:
+            # every client quarantined at the mesh wire: the empty cohort
+            info: Dict = {
+                "comm_bytes": 0,
+                "quarantined": [dataclasses.asdict(r) for r in wire_rejs],
+                "quarantined_bytes": sum(r.comm_bytes for r in wire_rejs),
+                "faults": {"degraded": True, "coverage": 0.0},
+            }
+            result = self._empty_cohort_result(
+                info, [], generator=generator, device=dev,
+                d=int(feats.shape[-1]))
+        else:
+            result = self.server_aggregate(messages, generator=generator,
+                                           device=dev, mesh=mesh)
+            if wire_rejs:
+                result.info.setdefault("quarantined", []).extend(
+                    dataclasses.asdict(r) for r in wire_rejs)
+                result.info["quarantined_bytes"] = (
+                    result.info.get("quarantined_bytes", 0)
+                    + sum(r.comm_bytes for r in wire_rejs))
+                faults = result.info.setdefault("faults", {})
+                faults["degraded"] = True
+                faults["coverage"] = len(messages) / I
+        _sync(dev)
+        result.info.update(
+            n_shards=n_shards, mesh_axes=tuple(axes_of(mesh)),
+            # what the collective itself moved: the whole padded (I, C, …)
+            # bf16 wire — absent and min_class_count-filtered classes
+            # cross the mesh too, unlike the host codec's payloads
+            mesh_wire_bytes=DF.expected_wire_bytes(
+                g.cov_type, int(feats.shape[-1]), g.n_components,
+                self.n_classes, I),
+            phase_s={"client_fit_s": t1 - t0, "encode_s": t2 - t1,
+                     "server_s": time.perf_counter() - t2})
+        return result
+
     # -- entry point --------------------------------------------------------
 
     def run(self, client_datasets: Sequence[Tuple[Any, Any]], *,
@@ -1283,13 +1505,29 @@ class FedSession:
         session's device (:func:`round_generator`; a Chain relays one).
         With ``ingest`` set the Star round streams through the broker;
         ``faults`` (an ``fl.faults.FaultPlan``) runs it under a fault
-        schedule.  A Star round's ``info["phase_s"]`` holds the host wall
-        time of the client fits, the encoding and the server phase."""
-        self._check_supported()
+        schedule; with ``mesh`` or ``shards`` the clients, stacked, go
+        through :meth:`run_sharded`.  A Star round's ``info["phase_s"]``
+        holds the host wall time of the client fits, the encoding and the
+        server phase."""
         dev = resolve_device(device)
         if faults is not None:
             return self._run_chaos(client_datasets, faults, seed=seed,
                                    device=dev)
+        if self.mesh is not None or self.shards is not None:
+            shapes = {(tuple(f.shape), tuple(y.shape))
+                      for f, y in client_datasets}
+            if len(shapes) != 1:
+                raise ValueError(
+                    f"FedSession(sharded): clients must share one "
+                    f"(N, d) / (N,) feats/labels shape to stack into the "
+                    f"mesh round, got {sorted(shapes)} — pad to a common N "
+                    "with label −1 rows, or run the host path (mesh=None, "
+                    "shards=None)")
+            feats = torch.stack([torch.as_tensor(f).to(dev)
+                                 for f, _ in client_datasets])
+            labels = torch.stack([torch.as_tensor(y).to(dev)
+                                  for _, y in client_datasets])
+            return self.run_sharded(feats, labels, seed=seed, device=dev)
         if self.ingest is not None:
             return self._run_streaming(client_datasets, seed=seed,
                                        device=dev)

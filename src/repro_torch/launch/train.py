@@ -8,7 +8,9 @@ synthetic LM stream (``data.token_lm_batches``, 10 batches cycled) with
 Adam under the cosine schedule (20 warmup steps), and saves
 ``{"params", "step"}`` to ``--ckpt`` when given.  The reference's flags
 and defaults, plus ``--device`` (``cuda``; ``cpu`` for the tests).  It
-runs on one device: the mesh and ``param_specs`` wait for ROADMAP item 9.
+runs on the host mesh (``launch.mesh.make_host_mesh``: a 1-rank process
+group when none exists) and prints it with how many parameter leaves
+``launch.sharding.param_specs`` shards on it.
 The seed draws the weights from one ``torch.Generator`` and the data's
 Gumbel noise from another (``--seed`` and ``--seed`` + 1).  ``main``
 returns the last step's loss, ``run`` that and the trained parameters.
@@ -23,6 +25,8 @@ import torch
 
 from repro_torch import checkpoint, data, optim, resolve_device, train
 from repro_torch.configs import get_config
+from repro_torch.launch import sharding as S
+from repro_torch.launch.mesh import axes_of, make_host_mesh
 from repro_torch.models import model as M
 
 
@@ -48,9 +52,13 @@ def run(argv=None) -> Tuple[float, Dict[str, Any]]:
                                         d_model=args.d_model)
     g_init = torch.Generator(device=dev).manual_seed(args.seed)
     g_data = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    mesh = make_host_mesh(dev)
     params = M.init_params(cfg, g_init, device=dev)
     n_params = sum(p.numel() for p in optim.tree_leaves(params))
-    print(f"[train] {cfg.name}: {n_params/1e6:.1f}M params, device={dev}")
+    specs = optim.tree_leaves(S.param_specs(cfg, params, mesh))
+    n_sharded = sum(any(a is not None for a in s) for s in specs)
+    print(f"[train] {cfg.name}: {n_params/1e6:.1f}M params, device={dev}, "
+          f"mesh={axes_of(mesh)}, {n_sharded}/{len(specs)} leaves sharded")
 
     sched = optim.cosine_schedule(args.lr, args.steps, warmup_steps=20)
     opt = optim.adam(sched)

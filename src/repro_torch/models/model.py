@@ -278,7 +278,8 @@ def _run_hybrid(cfg: ModelConfig, x, params, cache=None, *, positions,
 
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: Params, batch, *, cache: Any = None,
-            positions=None, window: int = 0, use_cache: bool = False):
+            positions=None, window: int = 0, use_cache: bool = False,
+            last_only: bool = False):
     """Returns (logits (B, S, V) f32, aux, cache).
 
     ``positions``: absolute positions of the supplied tokens — None for
@@ -290,7 +291,8 @@ def forward(cfg: ModelConfig, params: Params, batch, *, cache: Any = None,
     it.  Logits are the ``cfg.dtype`` product cast to f32, as the
     reference computes them, then soft-capped when the config says so;
     aux is the MoE load-balancing loss summed over the layers (0 without
-    experts).
+    experts).  ``last_only``: the logits of the last position alone, (B,
+    1, V).
     """
     x, _ = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
@@ -313,6 +315,8 @@ def forward(cfg: ModelConfig, params: Params, batch, *, cache: Any = None,
                                       cache if use_cache else None,
                                       positions=P, window=window)
         aux = aux + moe_aux
+    if last_only:
+        x = x[:, -1:]
     x = rms_norm(x, params["final_norm"])
     return _logits(cfg, params, x), aux, cache
 

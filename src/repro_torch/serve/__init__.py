@@ -34,11 +34,12 @@ def entry_device(params, device, who: str) -> torch.device:
 
 
 def _prefill(cfg: ModelConfig, max_seq: int, window: int, params, batch,
-             cache):
+             cache, last_only: bool = False):
     """forward over a prompt from position 0 into ``cache`` (a fresh
     ``init_cache`` when None): (logits (B, S, V), the primed cache).  A
     vlm prompt is its image prefix (``batch["img"]``) and then its text,
-    at positions 0 … n_img + S − 1."""
+    at positions 0 … n_img + S − 1.  ``last_only``: the logits of the
+    last position alone, (B, 1, V)."""
     if cfg.family == "vlm" and "img" not in batch:
         # the reference puts the text at positions n_img … n_img + S − 1
         # and fails to broadcast them against S tokens without an image
@@ -48,10 +49,11 @@ def _prefill(cfg: ModelConfig, max_seq: int, window: int, params, batch,
             "places the text after them and cannot serve a prompt "
             "without one")
     if cache is None:
-        cache = M.init_cache(cfg, batch["tokens"].shape[0], max_seq, window,
-                             device=_device(params))
+        B = next(iter(batch.values())).shape[0]
+        cache = M.init_cache(cfg, B, max_seq, window, device=_device(params))
     logits, _, cache = M.forward(cfg, params, batch, cache=cache,
-                                 window=window, use_cache=True)
+                                 window=window, use_cache=True,
+                                 last_only=last_only)
     return logits, cache
 
 
@@ -59,10 +61,13 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int,
                       window: int = 0) -> Callable:
     """prefill(params, batch, cache=None) -> (last-token logits (B, V),
     primed cache).  ``cache`` (a fresh ``init_cache`` by default) is
-    written in place: the server passes its slot's view."""
+    written in place: the server passes its slot's view.  Only the last
+    position's logits are computed (at 2 × 32768 tokens of a 256 000
+    vocabulary all of them would take 33.5 GB in bf16)."""
 
     def prefill(params, batch, cache=None):
-        logits, cache = _prefill(cfg, max_seq, window, params, batch, cache)
+        logits, cache = _prefill(cfg, max_seq, window, params, batch, cache,
+                                 last_only=True)
         return logits[:, -1], cache
 
     return prefill

@@ -997,3 +997,72 @@ def test_moe_layer_on_card_matches_the_cpu(dev, tag):
     err = float((yc.cpu() - y).abs().max())
     assert err <= 1e-5 * float(y.abs().max()), err
 
+
+
+def test_run_sharded_on_one_nccl_rank_is_the_host_star_round(dev):
+    """``FedSession.run_sharded`` on a 1-rank NCCL group: the wire
+    all-gather moves exactly Eqs. 9-11, the E-step runs as kernels, and
+    the round is the host path's on the same draws (each client's fit
+    from a generator seeded ``transfer_seed + i``, the server from
+    ``round_generator(seed, 0)``)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as DF
+    from repro_torch.core import gmm as G
+    from repro_torch.core import head as H
+    from repro_torch.fl import api as A
+    from repro_torch.launch import mesh as LM
+    started = LM.ensure_process_group(dev)
+    try:
+        C, K, d, I, N = 5, 3, 64, 4, 300
+        g = torch.Generator(device=dev).manual_seed(0)
+        labels = torch.randint(0, C, (I, N), generator=g, device=dev)
+        feats = (torch.randn(I, N, d, generator=g, device=dev)
+                 + 3.0 * torch.nn.functional.one_hot(labels, d).float())
+        sess = A.FedSession(
+            n_classes=C, summarizer=A.GMMSummarizer(G.GMMConfig(K, "diag")),
+            head=H.HeadConfig(n_steps=100), shards=1, transfer_seed=2)
+        ops.reset_launch_counts()
+        with DF.record_collectives() as tally:
+            res = sess.run_sharded(feats, labels, seed=5)
+        counts = ops.launch_counts()
+        assert counts["estep_fused"] > 0
+        assert not any(v for k, v in counts.items()
+                       if k.startswith("plain_on_cuda"))
+        want = DF.expected_wire_bytes("diag", d, K, C, I)
+        assert tally["by_tag"]["wire"] == res.info["mesh_wire_bytes"] == want
+        assert res.info["comm_bytes"] == sum(len(m.payload)
+                                             for m in res.messages)
+        msgs = []
+        for i in range(I):
+            gi = torch.Generator(device=dev).manual_seed(2 + i)
+            msgs.append(sess.encode(*sess.client_summary(
+                feats[i], labels[i], i, generator=gi, device=dev), i))
+        host = dataclasses.replace(sess, shards=None).server_aggregate(
+            msgs, generator=A.round_generator(5, 0, dev), device=dev)
+        for m_mesh, m_host in zip(res.messages, msgs):
+            assert m_mesh.header.counts == m_host.header.counts
+            for f in G.WIRE_FIELDS:
+                torch.testing.assert_close(m_mesh.params[f], m_host.params[f],
+                                           rtol=2e-3, atol=2e-3)
+        for p in ("w", "b"):
+            torch.testing.assert_close(res.model[p], host.model[p],
+                                       rtol=1e-2, atol=1e-2)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def test_dryrun_pair_on_card(dev):
+    """granite-3-2b's decode_32k at full width, 2 layers: 8 rows over a
+    32 768-slot cache, all filled, through ``attention_cached``."""
+    from repro_torch.launch import dryrun as DR
+    ops.reset_launch_counts()
+    row = DR.run_pair("granite-3-2b", "decode_32k", verbose=False)
+    counts = ops.launch_counts()
+    assert row["status"] == "ok" and row["rows"] == 8 and row["depth"] == 2
+    assert row["step_ms"] > 0 and row["peak_bytes"] > 0
+    assert row["flops"] > 0 and row["model_flops"] > 0
+    assert counts["attention_cached"] == 2 * 4       # a warm-up and 3 steps
+    assert not any(v for k, v in counts.items()
+                   if k.startswith("plain_on_cuda"))

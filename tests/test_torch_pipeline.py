@@ -128,14 +128,19 @@ def test_session_options_filter_resample_and_normalize(features):
 
 
 def test_unported_options_name_their_roadmap_item():
-    """Mesh execution still raises naming its ROADMAP item; the gradients
-    of ``wkv6`` and ``ssd`` (item 13, done: a backward kernel each on the
-    card) are, on CPU tensors, those of the plain versions; the options
-    of items 4 and 5 (ingest, the round-program cache, resilience) run a
-    round on the CPU."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        A.FedSession(n_classes=2, shards=2).run(
-            [(torch.zeros(4, 3), torch.zeros(4).long())], device="cpu")
+    """Mesh execution (item 9, done) runs a round on a 1-rank gloo group
+    on the CPU; the gradients of ``wkv6`` and ``ssd`` (item 13, done: a
+    backward kernel each on the card) are, on CPU tensors, those of the
+    plain versions; the options of items 4 and 5 (ingest, the
+    round-program cache, resilience) run a round on the CPU."""
+    gm = torch.Generator().manual_seed(3)
+    feats = torch.randn(16, 3, generator=gm)
+    labels = torch.arange(16) % 2
+    res = A.FedSession(n_classes=2, shards=1).run([(feats, labels)],
+                                                  device="cpu")
+    assert res.info["n_shards"] == 1
+    assert res.info["comm_bytes"] == sum(len(m.payload)
+                                         for m in res.messages)
     from repro_torch.kernels import ops, ref
     g = torch.Generator().manual_seed(0)
 

@@ -187,8 +187,17 @@ class TestSynthesisInvariants:
                                     np.zeros(4), "diag",
                                     generator=_seeded())
         assert f.shape == (0, 6) and y.shape == (0,)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            A.synthesize_chunks(b, SKEWED[:1], "diag", mesh=object())
+        # a mesh (one gloo rank): each bucket's rows transformed by the
+        # ranks and gathered are the chunks of a run without it, bitwise
+        from repro_torch.launch.mesh import make_sim_mesh
+        plain, _ = A.synthesize_chunks(b, SKEWED[:1], "diag",
+                                       generator=_seeded(2))
+        meshed, _ = A.synthesize_chunks(b, SKEWED[:1], "diag",
+                                        mesh=make_sim_mesh(1, device="cpu"),
+                                        generator=_seeded(2))
+        assert len(plain) == len(meshed)
+        for (fp, yp), (fm, ym) in zip(plain, meshed):
+            assert torch.equal(fp, fm) and torch.equal(yp, ym)
 
     @pytest.mark.parametrize("cov", ["full", "diag"])
     def test_identity_padding_leaves_the_fused_head_bit_identical(self, cov):
