@@ -2423,11 +2423,146 @@ DRYRUN_KERNELS = ("flash_attention", "flash_attention_bwd",
                   "attention_cached", "wkv6", "wkv6_bwd", "ssd", "ssd_bwd")
 
 
+# flash's forward at a dry-run shape is held on its last query rows,
+# against the plain attention over every key (the plain version's f32
+# scores of all rows would not fit beside the step's tensors)
+DRYRUN_Q_BLOCK = 128
+
+
+def dryrun_kernel_checks(torch, dev, calls):
+    """Every distinct kernel call of the dry run (``ops.record_calls`` over
+    each pair's warm-up: its shapes, layouts, keywords and positions)
+    replayed on fresh inputs in the call's own layouts
+    (``checks.replay_inputs``) and held against its plain version on the
+    same inputs, at the kernel phase's tolerances: flash's forward on the
+    last ``DRYRUN_Q_BLOCK`` query rows of every row and head; with grad,
+    the forward and dq, dk, dv (dO N(0, 1)) on the last batch row; cached
+    attention whole (rows with no visible key exactly 0); wkv6 and ssd
+    whole, and with grad their backwards on the last batch row, wkv6's du
+    (a sum over the batch) whole against its direct formula.  ``calls``:
+    [(pair, [ops.Call])].  Returns {kernel: calls held}."""
+    from repro_torch.kernels import attention_cached as CA
+    from repro_torch.kernels import checks, ref
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import flash_attention_bwd as FAB
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels import ssd_bwd as SSDB
+    from repro_torch.kernels import wkv6 as WKV
+    from repro_torch.kernels import wkv6_bwd as WKVB
+
+    seen, held = {}, {k: 0 for k in DRYRUN_KERNELS}
+    for pair, pair_calls in calls:
+        for call in pair_calls:
+            if not call.name.endswith("_bwd"):
+                seen.setdefault(call.key, (pair, call))
+    t0 = time.perf_counter()
+    for i, (pair, call) in enumerate(seen.values()):
+        g = torch.Generator(device=dev).manual_seed(1000 + i)
+        args = checks.replay_inputs(call, g, dev)
+        kw = dict(call.kw)
+        bf16 = args[0].dtype == torch.bfloat16
+        shape = dict(case=f"dryrun {pair}", shape=list(args[0].shape),
+                     dtype=str(args[0].dtype), grad=call.grad, **kw)
+        last = slice(args[0].shape[0] - 1, args[0].shape[0])
+        if call.name == "attention":
+            q, k, v = args
+            tol = checks.FLASH_TOL_BF16 if bf16 else ATTN_TOL_F32
+            if not call.grad:
+                o = FA.flash_attention(q, k, v, **kw)
+                Sq = q.shape[2]
+                blk = slice(Sq - min(Sq, DRYRUN_Q_BLOCK), Sq)
+                check_close(torch, "flash_attention", o[:, :, blk],
+                            ref.attention_ref(q[:, :, blk], k, v, **kw),
+                            tol, rows=f"queries {blk.start}-{Sq - 1}",
+                            **shape)
+                held["flash_attention"] += 1
+                del o
+            else:
+                o, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+                do = checks.strided_like(call.tensors[0], torch.randn(
+                    q.shape, generator=g, device=dev))
+                got = FAB.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+                check_close(torch, "flash_attention", o[last],
+                            ref.attention_ref(q[last], k[last], v[last],
+                                              **kw), tol, rows="last",
+                            **shape)
+                exp = ref.attention_bwd_ref(*(t[last] for t in (
+                    q, k, v, o, lse, do)), **kw)
+                gtol = checks.BWD_TOL_BF16 if bf16 else checks.BWD_TOL_F32
+                for n, a, e in zip(("dq", "dk", "dv"), got, exp):
+                    check_grad(torch, "flash_attention_bwd", a[last], e,
+                               gtol, output=n, rows="last", **shape)
+                held["flash_attention"] += 1
+                held["flash_attention_bwd"] += 1
+                del o, lse, do, got, exp
+        elif call.name == "attention_cached":
+            q, k, v, q_pos, kv_pos = args
+            out = CA.attention_cached(q, k, v, q_pos, kv_pos, **kw)
+            exp = ref.attention_positions_ref(q, k, v, q_pos, kv_pos, **kw)
+            mask = ref.positions_mask(q_pos, kv_pos, **kw)
+            sel = mask.any(-1)[:, None, :].expand(out.shape[:3])
+            check_close(torch, "attention_cached", out[sel], exp[sel],
+                        CACHED_TOL_BF16 if bf16 else ATTN_TOL_F32,
+                        keys=int(kv_pos.shape[1]),
+                        visible_pairs=int(mask.sum()), **shape)
+            if (~sel).any() and float(out[~sel].abs().max()) != 0.0:
+                raise AssertionError(f"attention_cached {shape}: rows with "
+                                     "no visible key are not 0")
+            held["attention_cached"] += 1
+            del out, exp, mask, sel
+        else:
+            fwd, plain, bwd, plain_bwd, names, tol = {
+                "wkv6": (WKV.wkv6, ref.wkv6_ref, WKVB.wkv6_bwd,
+                         ref.wkv6_bwd_ref, ("dr", "dk", "dv", "dlw", "du",
+                                            "dS0"), WKV6_TOL_F32),
+                "ssd": (SSD.ssd, ref.ssd_ref, SSDB.ssd_bwd, ref.ssd_bwd_ref,
+                        ("dx", "da_log", "dB", "dC", "dS0"), SSD_TOL_F32),
+            }[call.name]
+            got = fwd(*args, **kw)
+            exp = plain(*args, **kw)
+            for o, a, e in zip(("out", "state"), got, exp):
+                check_close(torch, call.name, a, e,
+                            REC_TOL_BF16 if bf16 else tol, output=o, **shape)
+            held[call.name] += 1
+            del got, exp
+            if call.grad:
+                dout = checks.strided_like(call.tensors[0], torch.randn(
+                    args[0].shape, generator=g, device=dev))
+                got = bwd(*args, dout, None)
+                # wkv6's u (H, Dh) is shared by the rows
+                whole = 4 if call.name == "wkv6" else None
+                exp = plain_bwd(*(a if j == whole else a[last]
+                                  for j, a in enumerate(args)),
+                                dout[last], None)
+                gtol = (checks.RECUR_BWD_TOL_BF16 if bf16
+                        else checks.RECUR_BWD_TOL_F32)
+                for n, a, e in zip(names, got, exp):
+                    if n == "du":   # summed over the batch: every row
+                        r, k, v = (t.float() for t in args[:3])
+                        e = (r * k * (v * dout.float()).sum(-1, True)).sum(
+                            (0, 2))
+                        check_grad(torch, f"{call.name}_bwd", a, e, gtol,
+                                   output=n, rows="all", **shape)
+                        continue
+                    check_grad(torch, f"{call.name}_bwd", a[last], e, gtol,
+                               output=n, rows="last", **shape)
+                held[f"{call.name}_bwd"] += 1
+                del dout, got, exp
+        del args
+        torch.cuda.empty_cache()
+    emit({"phase": "dryrun_checks", "calls": sum(len(c) for _, c in calls),
+          "held": len(seen), "by_kernel": held,
+          "s": time.perf_counter() - t0})
+    return held
+
+
 def dryrun_phase(torch, card):
     """``launch.dryrun.run_pair`` for every pair, each arch's weights drawn
     once.  Every row ``ok`` or ``skip`` with its reason; the phase's
     launches reach every attention and recurrence kernel with its
-    backward, and no plain version runs on the card."""
+    backward, and no plain version runs on the card.  Then each distinct
+    kernel call of the pairs' warm-ups is held against its plain version
+    at its own shapes (``dryrun_kernel_checks``)."""
     import gc
 
     from repro_torch.configs import ARCHS
@@ -2445,14 +2580,16 @@ def dryrun_phase(torch, card):
                 "free": torch.cuda.mem_get_info()[0]}
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    rows = []
+    rows, calls = [], []
     for arch in sorted(ARCHS):
         params = DR.init_weights(arch)
         for shape in INPUT_SHAPES:
+            pair_calls = []
             row = DR.run_pair(arch, shape, params=params, card=card,
-                              verbose=False)
+                              verbose=False, calls=pair_calls)
             emit({"phase": "dryrun", **row})
             rows.append(row)
+            calls.append((f"{arch} {shape}", pair_calls))
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -2468,6 +2605,10 @@ def dryrun_phase(torch, card):
             or plain or not all(counts[k] > 0 for k in DRYRUN_KERNELS)):
         raise AssertionError(f"dryrun: {status}, plain {plain}, "
                              f"{ {k: counts[k] for k in DRYRUN_KERNELS} }")
+    held = dryrun_kernel_checks(torch, torch.device("cuda"), calls)
+    if not all(held[k] > 0 for k in DRYRUN_KERNELS):
+        raise AssertionError(f"dryrun checks: a kernel was not held at a "
+                             f"dry-run shape: {held}")
     return {"dryrun": counts}
 
 
@@ -2846,9 +2987,6 @@ def main() -> int:
         counts.update(wide_phase(torch, dev, card, name, **spec))
     counts.update(train_phase(torch, dev, card))
     counts.update(dryrun_phase(torch, card))
-    import torch.distributed as dist
-    if dist.is_initialized():           # the launcher's host mesh
-        dist.destroy_process_group()
 
     sources = {"estep_fused": ("src/repro_torch/kernels/csrc/gmm_estep.cu",
                                "src/repro/kernels/gmm_estep.py:177"),

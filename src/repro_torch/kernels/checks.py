@@ -8,6 +8,8 @@ CUDA kernels against their plain versions on a card, and (the shapes) by
 the JAX package: the check shapes, inputs drawn from a ``torch.Generator``,
 and each recurrence one step at a time, as the f32 CUDA kernels run it.  A
 check runs the step recurrence in float64 as the exact answer.
+``replay_inputs`` draws fresh inputs for a call that ``ops.record_calls``
+recorded, in the call's own layouts.
 """
 from __future__ import annotations
 
@@ -327,3 +329,48 @@ def moe_run(cfg, x, w):
                                  cfg.top_k)
     return y, top_idx, int(sum(dropped for _, dropped, _ in rec))
 
+
+def strided_like(spec, values: torch.Tensor) -> torch.Tensor:
+    """``values`` copied into a fresh tensor with the layout of ``spec``
+    (an ``ops.TensorSpec``): its shape, strides, dtype and misalignment.
+    A dim of stride 0 (a broadcast) takes the values at its index 0."""
+    need = 1 + sum((n - 1) * st for n, st in zip(spec.shape, spec.stride)
+                   if n > 0)
+    base = torch.empty(spec.offset + need, dtype=spec.dtype,
+                       device=values.device)
+    own = tuple(1 if st == 0 else n for n, st in zip(spec.shape,
+                                                     spec.stride))
+    base.as_strided(own, spec.stride, spec.offset).copy_(
+        values[tuple(slice(0, n) for n in own)])
+    return base.as_strided(spec.shape, spec.stride, spec.offset)
+
+
+def replay_inputs(call, g: torch.Generator, dev):
+    """Fresh inputs for a recorded ``ops.Call``, in the call's own layouts:
+    attention's q, k, v N(0, 1); cached attention's with the call's
+    positions; the recurrences' in the blocks' laws (``wkv6_inputs`` /
+    ``ssd_inputs`` with ``model_like``), s0 N(0, 0.25²).  A backward's
+    record (``<name>_bwd``) replays its forward's inputs."""
+    specs = call.tensors
+    name = call.name.removesuffix("_bwd")
+
+    def rnd(spec):
+        return torch.randn(spec.shape, generator=g, device=dev)
+    if name == "attention":
+        vals = [rnd(s) for s in specs]
+    elif name == "attention_cached":
+        vals = [rnd(s) for s in specs[:3]] + [p.to(dev)
+                                              for p in call.positions]
+    elif name == "wkv6":
+        B, H, T, Dh = specs[0].shape
+        r, k, v, lw, u, s0 = wkv6_inputs(g, dev, B, H, T, Dh, model_like=True)
+        vals = [r, k, v, lw, u, 0.25 * s0]
+    elif name == "ssd":
+        Bt, H, T, P = specs[0].shape
+        N = specs[2].shape[-1]
+        x, a, Bm, Cm, s0 = ssd_inputs(g, dev, Bt, H, T, N, P,
+                                      model_like=True)
+        vals = [x, a, Bm, Cm, 0.25 * s0]
+    else:
+        raise ValueError(call.name)
+    return [strided_like(s, v) for s, v in zip(specs, vals)]

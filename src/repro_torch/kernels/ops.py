@@ -9,10 +9,16 @@ card, when grad is on and an input requires it, ``attention`` takes
 ``FlashAttention``, ``wkv6`` takes ``WKV6`` and ``ssd`` takes ``SSD``: each
 the forward kernel, then its hand-written backward kernel, at every shape
 of the forward.
+
+``record_calls`` lists the wrappers' calls on any device: their shapes,
+layouts and keywords (the dry run reads the attention masks from it, and
+``chip_smoke.py`` replays each call against its plain version).
 """
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+import dataclasses
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -27,7 +33,8 @@ from repro_torch.kernels import wkv6 as _wkv6
 from repro_torch.kernels import wkv6_bwd as _wkv6b
 
 __all__ = ["gmm_estep", "gmm_estep_fused", "attention", "attention_cached",
-           "wkv6", "ssd", "launch_counts", "reset_launch_counts"]
+           "wkv6", "ssd", "launch_counts", "reset_launch_counts",
+           "record_calls", "Call", "TensorSpec"]
 
 _KERNEL_COUNTS = (_ge.LAUNCHES, _fa.LAUNCHES, _fab.LAUNCHES, _ac.LAUNCHES,
                   _wkv6.LAUNCHES, _wkv6b.LAUNCHES, _ssd.LAUNCHES,
@@ -37,6 +44,78 @@ _KERNEL_COUNTS = (_ge.LAUNCHES, _fa.LAUNCHES, _fab.LAUNCHES, _ac.LAUNCHES,
 def _wants_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """A tensor argument's shape, strides, dtype and storage offset modulo
+    16 bytes (a view's alignment picks a kernel's route)."""
+    shape: Tuple[int, ...]
+    stride: Tuple[int, ...]
+    dtype: torch.dtype
+    offset: int
+
+    @classmethod
+    def of(cls, t: torch.Tensor) -> "TensorSpec":
+        off = 0 if t.is_meta else (t.data_ptr() % 16) // t.element_size()
+        return cls(tuple(t.shape), tuple(t.stride()), t.dtype, off)
+
+
+@dataclasses.dataclass(frozen=True)
+class Call:
+    """One wrapper call: the kernel's name, its tensor arguments in order,
+    its keywords, whether autograd takes the backward kernel too, and the
+    integer position tensors' values (CPU copies; None on ``meta``)."""
+    name: str
+    tensors: Tuple[TensorSpec, ...]
+    kw: Tuple[Tuple[str, object], ...]
+    grad: bool
+    positions: Optional[Tuple[torch.Tensor, ...]] = None
+
+    @property
+    def key(self):
+        """What makes two calls the same work (positions aside)."""
+        return self.name, self.tensors, self.kw, self.grad
+
+
+_RECORDING: List[List[Call]] = []
+
+
+@contextlib.contextmanager
+def record_calls() -> Iterator[List[Call]]:
+    """Every kernel wrapper call inside the block, as a :class:`Call`."""
+    calls: List[Call] = []
+    _RECORDING.append(calls)
+    try:
+        yield calls
+    finally:
+        _RECORDING.remove(calls)
+
+
+def _record(name, tensors, grad, positions=(), **kw) -> Optional[Call]:
+    if not _RECORDING:
+        return None
+    pos = None if any(p.is_meta for p in positions) else tuple(
+        p.detach().to("cpu", copy=True) for p in positions)
+    call = Call(name, tuple(TensorSpec.of(t) for t in tensors),
+                tuple(sorted(kw.items())), grad, pos)
+    for calls in _RECORDING:
+        calls.append(call)
+    return call
+
+
+def _record_backward(call: Optional[Call], out: torch.Tensor) -> None:
+    """Record ``call`` again, named ``<name>_bwd``, each time a gradient
+    reaches ``out`` (once a backward: under activation checkpointing the
+    recomputed forward is recorded, its output gets no gradient)."""
+    if call is None or not call.grad:
+        return
+    bwd = dataclasses.replace(call, name=f"{call.name}_bwd")
+
+    def hook(grad):
+        for calls in _RECORDING:
+            calls.append(bwd)
+    out.register_hook(hook)
 
 
 def gmm_estep(x, mu, var, pi):
@@ -59,19 +138,27 @@ def gmm_estep_fused(x, mu, var, pi):
 
 def attention(q, k, v, *, causal=True, window=0, prefix=0):
     """(B, H, Sq, D) × (B, Hkv, Sk, D) attention → (B, H, Sq, D)."""
+    call = _record("attention", (q, k, v), _wants_grad(q, k, v),
+                   causal=causal, window=window, prefix=prefix)
     if q.is_cuda:
         if _wants_grad(q, k, v):
-            return _fab.FlashAttention.apply(q, k, v, causal, window, prefix)
-        return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                                   prefix=prefix)
-    return ref.attention_ref(q, k, v, causal=causal, window=window,
-                             prefix=prefix)
+            o = _fab.FlashAttention.apply(q, k, v, causal, window, prefix)
+        else:
+            o = _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                    prefix=prefix)
+    else:
+        o = ref.attention_ref(q, k, v, causal=causal, window=window,
+                              prefix=prefix)
+    _record_backward(call, o)
+    return o
 
 
 def attention_cached(q, k, v, q_pos, kv_pos, *, causal=True, window=0):
     """(B, H, Sq, D) queries at positions q_pos (B, Sq) over a KV cache
     (B, Hkv, Sk, D) whose slots hold positions kv_pos (B, Sk), < 0 empty
     → (B, H, Sq, D)."""
+    _record("attention_cached", (q, k, v, q_pos, kv_pos), False,
+            (q_pos, kv_pos), causal=causal, window=window)
     if q.is_cuda:
         return _ac.attention_cached(q, k, v, q_pos, kv_pos, causal=causal,
                                     window=window)
@@ -81,6 +168,8 @@ def attention_cached(q, k, v, q_pos, kv_pos, *, causal=True, window=0):
 
 def wkv6(r, k, v, lw, u, s0, chunk: int = 16):
     """(B, H, T, Dh) WKV6 recurrence → (out, final state)."""
+    _record("wkv6", (r, k, v, lw, u, s0), _wants_grad(r, k, v, lw, u, s0),
+            chunk=chunk)
     if r.is_cuda:
         if _wants_grad(r, k, v, lw, u, s0):
             return _wkv6b.WKV6.apply(r, k, v, lw, u, s0, chunk)
@@ -90,6 +179,8 @@ def wkv6(r, k, v, lw, u, s0, chunk: int = 16):
 
 def ssd(x, a_log, B, C, s0, chunk: int = 64):
     """(Bt, H, T, P) Mamba2 SSD recurrence → (y, final state)."""
+    _record("ssd", (x, a_log, B, C, s0), _wants_grad(x, a_log, B, C, s0),
+            chunk=chunk)
     if x.is_cuda:
         if _wants_grad(x, a_log, B, C, s0):
             return _ssdb.SSD.apply(x, a_log, B, C, s0, chunk)

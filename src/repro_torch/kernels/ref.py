@@ -107,6 +107,21 @@ def attention_mask(Sq: int, Sk: int, *, causal: bool = True,
     return mask
 
 
+def visible_pairs(Sq: int, Sk: int, *, causal: bool = True,
+                  window: int = 0, prefix: int = 0) -> int:
+    """``attention_mask(Sq, Sk, …).sum()`` without the (Sq, Sk) mask: each
+    query sees the key range [lo, hi] and the first ``prefix`` keys."""
+    p = torch.arange(Sq, dtype=torch.int64) + (Sk - Sq)
+    hi = p.clamp(max=Sk - 1) if causal else torch.full_like(p, Sk - 1)
+    lo = (p - window + 1).clamp(min=0) if window > 0 else 0 * p
+    n = (hi - lo + 1).clamp(min=0)
+    if prefix > 0:
+        pre = min(prefix, Sk)
+        outside = lo.clamp(max=pre) + (pre - hi - 1).clamp(min=0)
+        n = torch.where(n > 0, n + outside, pre)
+    return int(n.sum())
+
+
 def _scores(q, k, causal, window, prefix):
     """(scaled f32 scores (B, Hkv, G, Sq, Sk), the (Sq, Sk) mask)."""
     B, H, Sq, D = q.shape

@@ -30,8 +30,14 @@ terms, its time and its memory:
     (``launch.hlo_cost.count`` on ``meta`` with the same cut),
     ``model_flops`` for the same cut, ``useful_ratio``, the roofline
     terms, ``step_ms`` (median of 3 after a warm-up), ``peak_bytes``,
-    ``peak_share`` (counted FLOPs over step time over the bf16 peak) and
-    the card's name and power limit.
+    the card's name and power limit, and two shares of the bf16 peak:
+    ``plain_share``, the counted FLOPs over the step time, and
+    ``peak_share``, the same less ``masked_flops``.  The plain attention
+    computes every (query, key) pair and then masks; the kernels skip the
+    masked ones (a causal prefill's upper half).  ``masked_flops`` is each
+    plain attention call's counted work, forward and backward, times its
+    masked share of pairs.  Both shares still count the plain versions'
+    unfused elementwise work, so neither is the card's utilisation.
 
 ``--count-only`` counts on ``meta`` without the card (the reference's
 lower-only mode), with ``--full-size`` at full depth and global batch.
@@ -56,6 +62,7 @@ from repro_torch import optim, resolve_device, serve, train
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.launch import hlo_cost as HC
 from repro_torch.launch import input_specs as I
+from repro_torch.kernels import ops, ref
 from repro_torch.launch import roofline as R
 from repro_torch.launch.mesh import (PEAK_FLOPS_BF16, axes_of, data_axes,
                                      make_production_mesh)
@@ -157,12 +164,44 @@ def make_step(cfg: ModelConfig, shape: InputShape, params, device,
 
 
 def count_pair(cfg: ModelConfig, shape: InputShape,
-               microbatch: int = 0) -> HC.Cost:
-    """The step's operation count, on ``meta`` through the plain
-    versions, at the given cut."""
+               microbatch: int = 0):
+    """(the step's operation count, its ``masked_flops``), on ``meta``
+    through the plain versions, at the given cut."""
     params = I.params_shapes(cfg)
-    return HC.count(make_step(cfg, shape, params, "meta",
-                              microbatch=microbatch))
+    with ops.record_calls() as calls:
+        cost = HC.count(make_step(cfg, shape, params, "meta",
+                                  microbatch=microbatch))
+    return cost, masked_flops(calls)
+
+
+def _attention_work(call) -> float:
+    """The counted FLOPs of one plain attention call (``attention``: the
+    forward; ``attention_bwd``: its backward) on ``meta``."""
+    q, k, v = (torch.zeros(t.shape, dtype=t.dtype, device="meta",
+                           requires_grad=call.grad) for t in call.tensors)
+    kw = dict(call.kw)
+    if call.name == "attention":
+        return HC.count(ref.attention_ref, q, k, v, **kw).flops
+    o = ref.attention_ref(q, k, v, **kw)
+    return HC.count(torch.autograd.grad, o, (q, k, v),
+                    torch.zeros_like(o)).flops
+
+
+def masked_flops(calls) -> float:
+    """The plain attention's work on masked (query, key) pairs over the
+    recorded calls: each call's counted work times its masked share."""
+    work: Dict[Any, float] = {}
+    total = 0.0
+    for call in calls:
+        if call.name not in ("attention", "attention_bwd"):
+            continue
+        Sq, Sk = call.tensors[0].shape[2], call.tensors[1].shape[2]
+        masked = 1.0 - ref.visible_pairs(Sq, Sk, **dict(call.kw)) / (Sq * Sk)
+        if masked > 0:
+            if call.key not in work:
+                work[call.key] = _attention_work(call)
+            total += masked * work[call.key]
+    return total
 
 
 def static_bytes(cfg: ModelConfig, mode: str) -> int:
@@ -182,9 +221,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_step(fn, n: int = 3) -> List[float]:
-    """Wall ms of ``n`` calls after a warm-up, each to ``synchronize``."""
-    fn()
+def _time_step(fn, n: int = 3, calls: Optional[list] = None
+               ) -> List[float]:
+    """Wall ms of ``n`` calls after a warm-up, each to ``synchronize``;
+    the warm-up's kernel calls appended to ``calls`` when given."""
+    if calls is None:
+        fn()
+    else:
+        with ops.record_calls() as warm:
+            fn()
+        calls.extend(warm)
     torch.cuda.synchronize()
     times = []
     for _ in range(n):
@@ -202,9 +248,10 @@ def _free() -> None:
 
 def run_on_card(cfg: ModelConfig, shape: InputShape, params,
                 generator: torch.Generator, reduced: List[str],
-                microbatch: int = 0):
+                microbatch: int = 0, calls: Optional[list] = None):
     """(shape as run, step ms of 3 calls, peak bytes): the step on the
-    card, rows halved while it runs out of memory."""
+    card, rows halved while it runs out of memory; the kernel calls of
+    the warm-up that ran appended to ``calls`` when given."""
     mode = I.mode_of(cfg, shape)
     total = torch.cuda.get_device_properties(0).total_memory
     need = static_bytes(cfg, mode)
@@ -220,8 +267,11 @@ def run_on_card(cfg: ModelConfig, shape: InputShape, params,
             torch.cuda.reset_peak_memory_stats()
             fn = make_step(cfg, shape, params, params["final_norm"].device,
                            generator, microbatch)
-            times = _time_step(fn)
+            warm: list = []
+            times = _time_step(fn, calls=None if calls is None else warm)
             del fn
+            if calls is not None:
+                calls.extend(warm)
             return shape, times, torch.cuda.max_memory_allocated()
         except torch.cuda.OutOfMemoryError:
             fn = None
@@ -248,10 +298,13 @@ def run_pair(arch: str, shape_name: str, *, params=None,
              multi_pod: bool = False, microbatch: int = 0,
              count_only: bool = False, full_size: bool = False,
              act_sharding: bool = True, verbose: bool = True,
-             card: Optional[str] = None, seed: int = 0) -> Dict[str, Any]:
+             card: Optional[str] = None, seed: int = 0,
+             calls: Optional[list] = None) -> Dict[str, Any]:
     """One pair's row.  ``params`` (``init_weights(arch)``) lets a caller
     reuse one arch's weights over its shapes.  ``microbatch`` > 0
-    accumulates the train step over slices of that many rows."""
+    accumulates the train step over slices of that many rows.  ``calls``,
+    when given, gets the kernel calls (``ops.Call``) of the step's
+    warm-up on the card."""
     t0 = time.perf_counter()
     cfg, shape = cut(arch, shape_name, full_size=full_size,
                      multi_pod=multi_pod)
@@ -273,7 +326,7 @@ def run_pair(arch: str, shape_name: str, *, params=None,
         g = torch.Generator(device=dev).manual_seed(seed + 1)
         try:
             shape, times, peak = run_on_card(cfg, shape, params, g, reduced,
-                                             microbatch)
+                                             microbatch, calls)
         except SkipPair as e:
             return {**row, "status": "skip", "reason": str(e),
                     "reduced": reduced}
@@ -281,16 +334,17 @@ def run_pair(arch: str, shape_name: str, *, params=None,
         row.update(step_ms=times_sorted[1], step_ms_runs=times,
                    peak_bytes=peak, card=card or card_line())
     t1 = time.perf_counter()
-    cost = count_pair(cfg, shape, microbatch)
+    cost, masked = count_pair(cfg, shape, microbatch)
     mf = R.model_flops_for(cfg, shape, mode)
     rl = R.from_count(cost, 1, model_flops=mf)
     row.update(status="ok", rows=shape.global_batch, reduced=reduced,
                count_s=time.perf_counter() - t1,
                dot_flops=cost.dot_flops, elem_flops=cost.elem_flops,
-               **rl.row())
+               masked_flops=masked, **rl.row())
     if "step_ms" in row:
-        row["peak_share"] = row["flops"] / (row["step_ms"] / 1e3
-                                            * PEAK_FLOPS_BF16)
+        at_peak = row["step_ms"] / 1e3 * PEAK_FLOPS_BF16
+        row["plain_share"] = row["flops"] / at_peak
+        row["peak_share"] = (row["flops"] - masked) / at_peak
     row["s"] = time.perf_counter() - t0
     if verbose:
         ur = rl.useful_flop_ratio

@@ -167,26 +167,13 @@ def cache_specs(cache_shape: Any, mesh) -> Any:
     return _map_with_path(spec_of, cache_shape)
 
 
-def activation_spec(shape: Tuple[int, ...], kind: str, mesh) -> Spec:
-    """The reference's activation constraint: batch dim → ("pod", "data");
-    logits additionally shard vocab → "model"."""
-    axes = axes_of(mesh)
-    b = _batch_dim_spec(shape[0], axes)
-    if (kind == "logits" and "model" in axes
-            and shape[-1] % axes["model"] == 0):
-        return (b,) + (None,) * (len(shape) - 2) + ("model",)
-    return (b,) + (None,) * (len(shape) - 1)
-
-
 def activation_constraint(mesh):
     """The activation hook ``fn(x, kind)``: the identity on one rank (the
-    port runs the model on one card; :func:`activation_spec` gives the
-    layout the reference constrains to)."""
+    port runs the model on one card)."""
     if mesh_size(mesh) != 1:
         raise ValueError(
             f"activation_constraint: the port runs the model on one card, "
-            f"not on a {axes_of(mesh)} mesh — read the layout with "
-            "activation_spec")
+            f"not on a {axes_of(mesh)} mesh")
 
     def fn(x, kind):
         return x

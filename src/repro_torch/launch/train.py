@@ -8,8 +8,9 @@ synthetic LM stream (``data.token_lm_batches``, 10 batches cycled) with
 Adam under the cosine schedule (20 warmup steps), and saves
 ``{"params", "step"}`` to ``--ckpt`` when given.  The reference's flags
 and defaults, plus ``--device`` (``cuda``; ``cpu`` for the tests).  It
-runs on the host mesh (``launch.mesh.make_host_mesh``: a 1-rank process
-group when none exists) and prints it with how many parameter leaves
+prints the host mesh, ("data", "model") = (ranks, 1) as a shape-only
+``launch.mesh.ShapeMesh`` (the ranks of a process group when one exists,
+else 1: it starts none), with how many parameter leaves
 ``launch.sharding.param_specs`` shards on it.
 The seed draws the weights from one ``torch.Generator`` and the data's
 Gumbel noise from another (``--seed`` and ``--seed`` + 1).  ``main``
@@ -22,11 +23,12 @@ import time
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import checkpoint, data, optim, resolve_device, train
 from repro_torch.configs import get_config
 from repro_torch.launch import sharding as S
-from repro_torch.launch.mesh import axes_of, make_host_mesh
+from repro_torch.launch.mesh import ShapeMesh, axes_of
 from repro_torch.models import model as M
 
 
@@ -52,7 +54,8 @@ def run(argv=None) -> Tuple[float, Dict[str, Any]]:
                                         d_model=args.d_model)
     g_init = torch.Generator(device=dev).manual_seed(args.seed)
     g_data = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    mesh = make_host_mesh(dev)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = ShapeMesh(("data", "model"), (world, 1))
     params = M.init_params(cfg, g_init, device=dev)
     n_params = sum(p.numel() for p in optim.tree_leaves(params))
     specs = optim.tree_leaves(S.param_specs(cfg, params, mesh))

@@ -1,10 +1,11 @@
 """One rank of the port's mesh lane (``tests/test_torch_mesh_lane.py``).
 
 Imports no JAX: each rank is a fresh process started by
-``torch.multiprocessing`` with the ``spawn`` method, joined to a gloo
-group of ``world`` ranks through a file store, and writes what it
-computed to ``<out>/rank<r>.pt``; the parent compares the world sizes
-with each other and with the JAX reference.
+``torch.multiprocessing`` with the ``spawn`` method.  It joins a gloo
+group of each world size in turn through a file store (rank r takes part
+in the worlds larger than r), and writes what it computed in world w to
+``<tmp>/w<w>/rank<r>.pt``; the parent compares the world sizes with each
+other and with the JAX reference.
 """
 from __future__ import annotations
 
@@ -16,10 +17,27 @@ import torch
 import torch.distributed as dist
 
 
-def run(rank: int, world: int, init_file: str, out: str, inputs: str
-        ) -> None:
+def run(rank: int, worlds, tmp: str, inputs: str) -> None:
+    """Rank ``rank`` of each world size in ``worlds`` that has it."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "src"))
+    torch.set_num_threads(1)
+    inp = torch.load(inputs)
+    for world in worlds:
+        if rank >= world:
+            continue
+        if world > 1:
+            dist.init_process_group(
+                "gloo", init_method=f"file://{tmp}/store{world}", rank=rank,
+                world_size=world)
+        res = _world(world, inp)
+        torch.save(res, os.path.join(tmp, f"w{world}", f"rank{rank}.pt"))
+        if world > 1:
+            dist.barrier()
+            dist.destroy_process_group()
+
+
+def _world(world: int, inp) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core import distributed as DF
     from repro_torch.core import gmm as G
@@ -29,11 +47,6 @@ def run(rank: int, world: int, init_file: str, out: str, inputs: str
     from repro_torch.launch import sharding as S
     from repro_torch.models import model as M
 
-    torch.set_num_threads(1)
-    if world > 1:
-        dist.init_process_group("gloo", init_method=f"file://{init_file}",
-                                rank=rank, world_size=world)
-    inp = torch.load(inputs)
     feats, labels, C, K = inp["feats"], inp["labels"], inp["C"], inp["K"]
     mesh = LM.make_sim_mesh(world, device="cpu")
     res = {}
@@ -69,6 +82,15 @@ def run(rank: int, world: int, init_file: str, out: str, inputs: str
             "payload": sum(len(m.payload) for m in r.messages),
             "n_shards": r.info["n_shards"],
             "mesh_wire_bytes": r.info["mesh_wire_bytes"]}
+
+    # synthesis on one fixed wire: with the mesh, each rank transforms its
+    # rows of every bucket; the gathered chunks must be those of the run
+    # without it, bit for bit
+    syn = inp["synthesis"]
+    res["synthesis"] = [A.synthesize_chunks(
+        syn["batch"], syn["counts"], "diag", mesh=m,
+        generator=torch.Generator().manual_seed(11))[0]
+        for m in (mesh, None)]
 
     # identical data on every client: globally disjoint seeds must still
     # give each client its own fit
@@ -106,7 +128,4 @@ def run(rank: int, world: int, init_file: str, out: str, inputs: str
                 local = distribute_tensor(t, host, p).to_local()
                 shapes[name] = (tuple(t.shape), sp, tuple(local.shape))
         res["dtensor"] = shapes
-    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
-    if world > 1:
-        dist.barrier()
-        dist.destroy_process_group()
+    return res

@@ -1055,14 +1055,29 @@ def test_run_sharded_on_one_nccl_rank_is_the_host_star_round(dev):
 
 def test_dryrun_pair_on_card(dev):
     """granite-3-2b's decode_32k at full width, 2 layers: 8 rows over a
-    32 768-slot cache, all filled, through ``attention_cached``."""
+    32 768-slot cache, all filled, through ``attention_cached``; the
+    warm-up's recorded call, replayed on fresh inputs in its layouts,
+    agrees with the plain version over every key."""
     from repro_torch.launch import dryrun as DR
     ops.reset_launch_counts()
-    row = DR.run_pair("granite-3-2b", "decode_32k", verbose=False)
+    calls = []
+    row = DR.run_pair("granite-3-2b", "decode_32k", verbose=False,
+                      calls=calls)
     counts = ops.launch_counts()
     assert row["status"] == "ok" and row["rows"] == 8 and row["depth"] == 2
     assert row["step_ms"] > 0 and row["peak_bytes"] > 0
     assert row["flops"] > 0 and row["model_flops"] > 0
+    assert row["masked_flops"] == 0 and row["peak_share"] == \
+        row["plain_share"] > 0
     assert counts["attention_cached"] == 2 * 4       # a warm-up and 3 steps
     assert not any(v for k, v in counts.items()
                    if k.startswith("plain_on_cuda"))
+    assert [c.name for c in calls] == ["attention_cached"] * 2
+    q, k, v, q_pos, kv_pos = checks.replay_inputs(
+        calls[0], torch.Generator(device=dev).manual_seed(0), dev)
+    assert k.shape[2] == 32768
+    assert bool(ref.positions_mask(q_pos, kv_pos).all())
+    out = CA.attention_cached(q, k, v, q_pos, kv_pos)
+    exp = ref.attention_positions_ref(q, k, v, q_pos, kv_pos)
+    err = (out.float() - exp.float()).abs()
+    assert bool((err <= 1e-2 + 1e-2 * exp.float().abs()).all())

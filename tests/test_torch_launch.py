@@ -26,6 +26,7 @@ from repro.models.config import INPUT_SHAPES as JSHAPES
 from repro.optim import adam as jax_adam
 from repro_torch import optim, train
 from repro_torch.configs import get_config
+from repro_torch.kernels import checks, ops, ref
 from repro_torch.launch import dryrun as DR
 from repro_torch.launch import fedpft_dryrun as FD
 from repro_torch.launch import hlo_cost as HC
@@ -122,18 +123,16 @@ def test_specs_and_shapes_equal_the_reference(arch):
 
 
 def test_activation_specs_and_constraint():
-    x = (256, 4096, 2048)
-    for mesh in (FakeMesh2D(), FakeMesh3D()):
-        for kind in ("hidden", "logits"):
-            assert S.activation_spec(x, kind, mesh) == \
-                (("pod", "data") if "pod" in mesh.axis_names else "data",
-                 None, "model" if kind == "logits" else None)
+    """The activation hook is the identity on one rank and refuses a mesh
+    of more (the port runs the model on one card)."""
     from repro_torch.launch.mesh import ShapeMesh
     one = ShapeMesh(("data", "model"), (1, 1))
     t = torch.ones(2, 3)
-    assert S.activation_constraint(one)(t, "logits") is t
-    with pytest.raises(ValueError, match="one card"):
-        S.activation_constraint(FakeMesh2D())
+    for kind in ("hidden", "logits"):
+        assert S.activation_constraint(one)(t, kind) is t
+    for mesh in (FakeMesh2D(), FakeMesh3D()):
+        with pytest.raises(ValueError, match="one card"):
+            S.activation_constraint(mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +247,72 @@ def test_roofline_terms():
     assert (rl.t_compute, rl.t_memory, rl.t_collective) == (1.0, 1.0, 1.0)
     assert rl.useful_flop_ratio == 0.5
     assert rl.row()["coll_by_kind"]["all-gather"] == int(450e9)
+
+
+@pytest.mark.parametrize("Sq, Sk, causal, window, prefix", [
+    (64, 64, True, 0, 0), (40, 64, True, 0, 0), (64, 64, False, 16, 0),
+    (64, 64, True, 16, 0), (64, 64, True, 0, 20), (70, 50, True, 8, 30)])
+def test_visible_pairs_is_the_masks_count(Sq, Sk, causal, window, prefix):
+    kw = dict(causal=causal, window=window, prefix=prefix)
+    assert ref.visible_pairs(Sq, Sk, **kw) == int(
+        ref.attention_mask(Sq, Sk, **kw).sum())
+
+
+def test_masked_flops_are_the_plain_attentions_masked_share():
+    """One causal attention call with its backward: recorded as
+    ``attention`` and ``attention_bwd``; its masked work is the plain
+    version's counted forward and backward work times the masked share
+    1 − (S + 1) / 2S; a bidirectional call masks nothing."""
+    S = 64
+    q, k, v = (torch.zeros(2, 4, S, 16, device="meta", requires_grad=True)
+               for _ in range(3))
+    with ops.record_calls() as calls:
+        ops.attention(q, k, v, causal=True).sum().backward()
+    assert [c.name for c in calls] == ["attention", "attention_bwd"]
+    fwd = HC.count(ref.attention_ref, q, k, v, causal=True).flops
+    o = ref.attention_ref(q, k, v, causal=True)
+    bwd = HC.count(torch.autograd.grad, o, (q, k, v),
+                   torch.zeros_like(o)).flops
+    share = 1 - (S + 1) / (2 * S)
+    assert DR.masked_flops(calls) == pytest.approx(share * (fwd + bwd))
+    with ops.record_calls() as calls:
+        ops.attention(q, k, v, causal=False)
+    assert DR.masked_flops(calls) == 0
+
+
+def test_recorded_calls_replay_in_their_layouts():
+    """A reduced train step records each layer's attention twice (the
+    checkpointed forward and its recompute) and its backward once; a
+    decode records cached attention with its positions.  The replayed
+    inputs have each call's shapes, strides and dtypes, and its
+    positions."""
+    cfg = get_config("granite-3-2b").reduced(n_layers=2)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    g = torch.Generator().manual_seed(1)
+    calls = []
+    for name, seq in (("train_4k", 32), ("decode_32k", 48)):
+        shape = dataclasses.replace(INPUT_SHAPES[name], seq_len=seq,
+                                    global_batch=2)
+        fn = DR.make_step(cfg, shape, params, "cpu", g)
+        with ops.record_calls() as got:
+            fn()
+        calls += got
+    names = [c.name for c in calls]
+    assert names.count("attention") == 4 and all(
+        c.grad for c in calls if c.name == "attention")
+    assert names.count("attention_bwd") == 2
+    assert names.count("attention_cached") == 2
+    for call in calls:
+        args = checks.replay_inputs(call, g, "cpu")
+        for a, spec in zip(args, call.tensors):
+            assert ops.TensorSpec.of(a) == spec
+        if call.positions is not None:
+            for a, p in zip(args[3:], call.positions):
+                assert torch.equal(a, p)
+    cached = [c for c in calls if c.name == "attention_cached"][0]
+    assert cached.tensors[0].stride != tuple(
+        torch.empty(cached.tensors[0].shape).stride())   # a view's layout
 
 
 # ---------------------------------------------------------------------------

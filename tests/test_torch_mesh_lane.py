@@ -3,14 +3,17 @@ the CPU, against each other and against the JAX reference's 1-shard
 round (after ``tests/multidevice/test_shard_invariance.py``, whose
 tolerances it keeps).
 
-The 1-rank round runs in this process; the 2- and 4-rank rounds are
-spawned together (``tests/_torch_mesh_ranks.py``, which imports no JAX),
-each rank joined to its world's gloo group through a file store.  The
-JAX side is computed here.  Checks: the wire with the reference's draws
-against the reference's wire, and with the port's own draws across world
-sizes; the session (streamed and fused) across world sizes; globally
-disjoint client seeds; the uneven-cohort error; DTensor placements from
-``launch.sharding.named`` on a 2-rank mesh.
+The 1-rank round runs in this process; four ranks are spawned
+(``tests/_torch_mesh_ranks.py``, which imports no JAX), each joining the
+4-rank gloo group and then, ranks 0 and 1, the 2-rank one, through file
+stores.  The JAX side is computed here.  Checks: the wire with the
+reference's draws against the reference's wire, and with the port's own
+draws across world sizes; the session (streamed and fused) across world
+sizes, the synthetic pool row by row; synthesis over the mesh bit for bit
+the run without it; the fused round against the reference's 1-shard
+``run_sharded`` (its own draws: by accuracy and agreement of the heads'
+predictions); globally disjoint client seeds; the uneven-cohort error;
+DTensor placements from ``launch.sharding.named`` on a 2-rank mesh.
 """
 import os
 
@@ -25,6 +28,8 @@ import _torch_mesh_ranks as ranks
 from repro import data as JD
 from repro.core import distributed as JDF
 from repro.core import gmm as JG
+from repro.core import head as JH
+from repro.fl import api as JA
 from repro.launch.mesh import make_sim_mesh as jax_sim_mesh
 from test_torch_gmm import FIT_TOL, _reference_kmeans_draws
 
@@ -52,20 +57,18 @@ def lane(tmp_path_factory):
     torch.save({"feats": torch.from_numpy(feats.copy()),
                 "labels": torch.from_numpy(labels), "C": C, "K": K,
                 "init_idx": torch.stack([d[0] for d in draws]),
-                "jitter": torch.stack([d[1] for d in draws])}, inputs)
+                "jitter": torch.stack([d[1] for d in draws]),
+                "synthesis": _synthesis_input()}, inputs)
+    for world in WORLDS:
+        os.makedirs(os.path.join(tmp, f"w{world}"))
     ctx = mp.get_context("spawn")
     procs = []
-    for world in WORLDS[1:]:
-        out = os.path.join(tmp, f"w{world}")
-        os.makedirs(out)
-        for r in range(world):
-            p = ctx.Process(target=ranks.run, args=(
-                r, world, os.path.join(tmp, f"store{world}"), out, inputs))
-            p.start()
-            procs.append(p)
-    out1 = os.path.join(tmp, "w1")
-    os.makedirs(out1)
-    ranks.run(0, 1, "", out1, inputs)
+    for r in range(max(WORLDS)):
+        p = ctx.Process(target=ranks.run, args=(r, WORLDS[:0:-1], str(tmp),
+                                                inputs))
+        p.start()
+        procs.append(p)
+    ranks.run(0, (1,), str(tmp), inputs)
     for p in procs:
         p.join(timeout=240)
     assert all(not p.is_alive() and p.exitcode == 0 for p in procs), \
@@ -84,6 +87,21 @@ def lane(tmp_path_factory):
                 assert torch.equal(other["session/fused"]["model"][p],
                                    res[w]["session/fused"]["model"][p])
     return feats, labels, res
+
+
+def _synthesis_input():
+    """A fixed diag wire of 3 clients × 4 classes × K 2 in dim 6, with
+    counts that make buckets of 1 to 5 slots (some classes absent)."""
+    rng = np.random.RandomState(3)
+    pi = rng.rand(3, C, K) + 0.1
+    return {"batch": {
+        "pi": torch.from_numpy((pi / pi.sum(-1, keepdims=True)).astype(
+            np.float32)),
+        "mu": torch.from_numpy(rng.randn(3, C, K, DIM).astype(np.float32)),
+        "cov": torch.from_numpy((rng.rand(3, C, K, DIM) + 0.1).astype(
+            np.float32))},
+        "counts": torch.tensor([[5, 0, 17, 40], [9, 33, 0, 3],
+                                [70, 12, 6, 1]])}
 
 
 def _f32(t):
@@ -149,6 +167,10 @@ def test_session_invariance_across_world_sizes(lane):
                                            rtol=1e-2, atol=2e-2)
         np.testing.assert_array_equal(ref["pool"][1].numpy(),
                                       r["pool"][1].numpy())
+        # row by row: the buckets' rows come back in the 1-rank order
+        np.testing.assert_allclose(ref["pool"][0].numpy(),
+                                   r["pool"][0].numpy(), rtol=1e-2,
+                                   atol=2e-2)
         np.testing.assert_allclose(ref["pool"][0].mean(0).numpy(),
                                    r["pool"][0].mean(0).numpy(), atol=2e-2)
         np.testing.assert_allclose(ref["pool"][0].std(0).numpy(),
@@ -173,6 +195,47 @@ def test_fused_head_invariance_across_world_sizes(lane):
             np.testing.assert_allclose(ref["model"][p].numpy(),
                                        r["model"][p].numpy(), rtol=1e-2,
                                        atol=2e-2)
+
+
+def test_synthesis_over_the_mesh_is_the_run_without_it(lane):
+    """Every rank draws each bucket whole and transforms its own rows: the
+    gathered chunks are the run's without a mesh bit for bit, at every
+    world size (buckets of 1 to 5 slots, padded to the world)."""
+    _, _, res = lane
+    plain = res[1]["synthesis"][1]
+    for w in WORLDS:
+        with_mesh, without = res[w]["synthesis"]
+        assert len(with_mesh) == len(without) == len(plain) > 1
+        for (f, y), (f0, y0), (fp, yp) in zip(with_mesh, without, plain):
+            assert torch.equal(f, f0) and torch.equal(y, y0)
+            assert torch.equal(f, fp) and torch.equal(y, yp)
+
+
+def test_fused_round_against_the_references_one_shard_round(lane):
+    """The fused round at every world size against the reference's
+    ``run_sharded`` on a 1-shard mesh.  The two packages draw from their
+    own generators (k-means starts, synthesis, head), so the heads are
+    held by what they predict: on the cohort's features, accuracy within
+    0.02 of the reference head's and the same class for ≥ 95 % of the
+    samples."""
+    feats, labels, res = lane
+    sess = JA.FedSession(
+        n_classes=C, summarizer=JA.GMMSummarizer(JG.GMMConfig(
+            n_components=K, cov_type="diag", n_iter=5)),
+        head=JH.HeadConfig(n_steps=120, lr=3e-3), shards=1,
+        synthesis="fused")
+    jr = sess.run_sharded(jax.random.PRNGKey(0), jnp.asarray(feats),
+                          jnp.asarray(labels.astype(np.int32)))
+    assert jr.info["n_shards"] == 1
+    x = feats.reshape(-1, DIM)
+    y = labels.reshape(-1)
+    pred_j = np.asarray(x @ np.asarray(jr.model["w"])
+                        + np.asarray(jr.model["b"])).argmax(-1)
+    for w in WORLDS:
+        m = res[w]["session/fused"]["model"]
+        pred = (torch.from_numpy(x) @ m["w"] + m["b"]).argmax(-1).numpy()
+        assert abs((pred == y).mean() - (pred_j == y).mean()) <= 0.02, w
+        assert (pred == pred_j).mean() >= 0.95, w
 
 
 def test_client_seeds_disjoint_end_to_end(lane):
