@@ -403,7 +403,8 @@ def _grouped_full_noise(fac: torch.Tensor, ids: torch.Tensor,
     grp = inv[order]
     rank = torch.arange(n, device=eps.device) - (torch.cumsum(cnt, 0)
                                                  - cnt)[grp]
-    block = eps.new_zeros((uniq.shape[0], int(cnt.max()), d))
+    # full covariance is never captured (launch/aot_cache.py runs it eagerly)
+    block = eps.new_zeros((uniq.shape[0], int(cnt.max()), d))  # lint: disable=HOST-SYNC
     block[grp, rank] = eps[order]
     f = fac if uniq.shape[0] == fac.shape[0] else fac.index_select(0, uniq)
     prod = torch.bmm(block, f.transpose(1, 2))                # rows (F·ε)ᵀ

@@ -1458,7 +1458,9 @@ class FedSession:
                                      logliks=lls, validate=validate)
         messages, wire_rejs = decoded if validate else (decoded, [])
         t2 = time.perf_counter()
-        generator = round_generator(seed, 0, dev)
+        # the server phase runs whole on every rank, the same draws on
+        # each, so every rank returns the same head
+        generator = round_generator(seed, 0, dev)  # lint: disable=KEY-SHARD
         if not messages:
             # every client quarantined at the mesh wire: the empty cohort
             info: Dict = {

@@ -238,7 +238,8 @@ def fedavg(client_datasets: Sequence[Tuple], n_classes: int,
             if cfg.topk_frac:
                 delta = _sparsify(delta, cfg.topk_frac)
             deltas.append(delta)
-        mean_delta = {k: sum(float(w) * dl[k] for w, dl in
+        # weights: host numpy floats (client sizes), no tensor
+        mean_delta = {k: sum(float(w) * dl[k] for w, dl in  # lint: disable=HOST-SYNC
                              zip(weights, deltas)) for k in global_head}
         if server_opt:
             # yogi takes −mean_delta as the gradient

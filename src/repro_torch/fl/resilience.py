@@ -23,6 +23,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.analysis.sanitize import reset_active
 from repro_torch.core import gmm as G
 
 __all__ = ["Rejection", "ResilienceConfig", "TransientClientError",
@@ -184,9 +185,10 @@ def call_with_retry(fn: Callable[[], object], cfg: ResilienceConfig,
 
     A replay must reproduce the message a clean first attempt would have
     sent: the caller's ``fn`` builds its client's draw stream afresh from
-    the client's seed on every call.  The reference also resets its JAX
-    key-reuse sanitizer before each replay; the port has no such
-    sanitizer, so nothing is reset here.
+    the client's seed on every call.  The runtime stream tracer would flag
+    exactly that replay, so it is announced before each one
+    (``analysis.sanitize.reset_active`` — a documented suppression, not a
+    bug; DESIGN.md §13).
     """
     backoff = 0.0
     for attempt in range(cfg.max_retries + 1):
@@ -195,6 +197,8 @@ def call_with_retry(fn: Callable[[], object], cfg: ResilienceConfig,
             backoff += delay
             if advance is not None:
                 advance(delay)
+            reset_active(f"client retry attempt {attempt}: deliberate "
+                         "same-seed replay")
         try:
             return True, fn(), attempt + 1, backoff
         except TransientClientError:

@@ -7,9 +7,16 @@ headers and the flags, so a changed source rebuilds and an unchanged one
 loads.  Nothing here runs at
 import time: the CPU tests import every module and have no ``nvcc``.  A
 failed build raises; there is no fallback to the plain version.
+
+Every source includes ``csrc/launch_plan.cuh``: inside :func:`planning`
+its launch function records each kernel instance it would launch (grid,
+block, shared memory, registers, spills, blocks an SM) instead of
+launching it, so the wrappers run unchanged and report their own
+geometry (``analysis/pallas_rules.py`` checks it against the card).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,14 +24,20 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, Iterator, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+SOURCES = ("gmm_estep.cu", "flash_attention.cu", "wkv6.cu", "ssd.cu",
+           "attention_cached.cu", "flash_attention_bwd.cu", "wkv6_bwd.cu",
+           "ssd_bwd.cu")
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_PLANNING: List[List[dict]] = []
+_PLAN_CAP = 64             # instances one source may record in a plan
 
 
 def _nvcc() -> str:
@@ -124,3 +137,68 @@ def check(status: int, what: str) -> None:
     if status != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
                            f"{status}")
+
+
+def count(table: Dict[str, int], name: str) -> None:
+    """Add a launch of ``name`` to a wrapper's ``LAUNCHES`` table; a call
+    made inside :func:`planning` launched nothing and is not counted."""
+    if not _PLANNING:
+        table[name] += 1
+
+
+class PlanInstance(ctypes.Structure):
+    """``PlanInstance`` of ``csrc/launch_plan.cuh``."""
+    _fields_ = [("name", ctypes.c_char * 160),
+                ("grid", ctypes.c_int * 3), ("block", ctypes.c_int * 3),
+                ("dyn_smem", ctypes.c_longlong),
+                ("cover_extent", ctypes.c_longlong * 3),
+                ("cover_tile", ctypes.c_longlong * 3),
+                ("static_smem", ctypes.c_int), ("regs", ctypes.c_int),
+                ("local_bytes", ctypes.c_int), ("max_threads", ctypes.c_int),
+                ("max_dyn_smem", ctypes.c_int),
+                ("blocks_per_sm", ctypes.c_int), ("status", ctypes.c_int)]
+
+    def as_dict(self, source: str) -> dict:
+        raw = self.name.decode(errors="replace")
+        return {"source": source, "kernel": _kernel_name(raw)
+                if raw.startswith("_Z") else raw.strip("()"),
+                "grid": tuple(self.grid), "block": tuple(self.block),
+                "dyn_smem": int(self.dyn_smem),
+                "cover": tuple((int(e), int(t)) for e, t in
+                               zip(self.cover_extent, self.cover_tile)),
+                "static_smem": int(self.static_smem), "regs": int(self.regs),
+                "local_bytes": int(self.local_bytes),
+                "max_threads": int(self.max_threads),
+                "max_dyn_smem": int(self.max_dyn_smem),
+                "blocks_per_sm": int(self.blocks_per_sm),
+                "status": int(self.status)}
+
+
+@contextlib.contextmanager
+def planning(sources: Sequence[str] = SOURCES) -> Iterator[List[dict]]:
+    """Inside the block no kernel of ``sources`` launches: each launch
+    function records the instances it would launch, and the block's list
+    receives them (``PlanInstance.as_dict``) when it exits.  Wrappers
+    called inside run their checks and allocations as always, and count
+    no launch.  Every library armed is disarmed on the way out, whatever
+    raised."""
+    plan: List[dict] = []
+    armed = []
+    _PLANNING.append(plan)
+    try:
+        for s in sources:
+            lib = load(s)
+            lib.launch_plan_begin.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            lib.launch_plan_end.argtypes = []
+            buf = (PlanInstance * _PLAN_CAP)()
+            lib.launch_plan_begin(ctypes.addressof(buf), _PLAN_CAP)
+            armed.append((s, lib, buf))
+        yield plan
+    finally:
+        _PLANNING.remove(plan)
+        counts = [(s, lib.launch_plan_end(), buf) for s, lib, buf in armed]
+    for s, n, buf in counts:
+        if n > _PLAN_CAP:
+            raise RuntimeError(f"planning: {s} recorded {n} instances, more "
+                               f"than {_PLAN_CAP}")
+        plan.extend(buf[i].as_dict(s) for i in range(n))

@@ -185,5 +185,5 @@ def attention_cached(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         H, Hkv, Sq, Sk, D, int(causal), int(window), per, n_split,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "attention_cached_launch")
-    LAUNCHES["attention_cached"] += 1
+    _build.count(LAUNCHES, "attention_cached")
     return out

@@ -97,6 +97,7 @@
 #include <cstdint>
 
 #include "tensor_core.cuh"
+#include "launch_plan.cuh"
 
 namespace {
 
@@ -771,7 +772,8 @@ struct Args {
 template <typename T, int D>
 int combine(const Args& a, cudaStream_t stream) {
   const long long n_rows = (long long)a.B * a.H * a.Sq;
-  combine_kernel<T, D><<<static_cast<unsigned>(n_rows), 32, 0, stream>>>(
+  COVER(0, n_rows, 1);
+  LAUNCH((combine_kernel<T, D>), static_cast<unsigned>(n_rows), 32, 0, stream,
       a.part_acc, a.part_ml, static_cast<T*>(a.o), a.so, a.H, a.Sq, n_rows,
       a.n_split);
   return static_cast<int>(cudaGetLastError());
@@ -794,7 +796,10 @@ int launch_f32(const Args& a, cudaStream_t stream) {
   if (grid.y > 65535u || grid.z > 65535u)
     return static_cast<int>(cudaErrorInvalidValue);
   // the f32 kernel scales q by scale * log2 e as it loads it
-  cached_simt_kernel<D><<<grid, THREADS, smem, stream>>>(
+  COVER(0, (long long)a.B * a.Hkv, 1);
+  COVER(1, R, SIMT_ROWS);
+  COVER(2, a.Sk, a.keys_per_split);
+  LAUNCH((cached_simt_kernel<D>), grid, THREADS, smem, stream,
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.q_pos, a.kv_pos,
       static_cast<float*>(a.o), a.part_acc, a.part_ml, a.sq, a.sk, a.sv, a.so,
@@ -826,7 +831,10 @@ int launch_mma(const Args& a, cudaStream_t stream) {
   const dim3 grid(a.B * a.Hkv, (R + RPB - 1) / RPB, a.n_split);
   if (grid.y > 65535u || grid.z > 65535u)
     return static_cast<int>(cudaErrorInvalidValue);
-  cached_mma_kernel<D, KS><<<grid, THREADS, smem, stream>>>(
+  COVER(0, (long long)a.B * a.Hkv, 1);
+  COVER(1, R, RPB);
+  COVER(2, a.Sk, a.keys_per_split);
+  LAUNCH((cached_mma_kernel<D, KS>), grid, THREADS, smem, stream,
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), a.q_pos, a.kv_pos,
       static_cast<bf16*>(a.o), a.part_acc, a.part_ml, a.sq, a.sk, a.sv, a.so,

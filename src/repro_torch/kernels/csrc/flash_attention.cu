@@ -81,6 +81,7 @@
 #include <cstdint>
 
 #include "tensor_core.cuh"
+#include "launch_plan.cuh"
 
 namespace {
 
@@ -547,7 +548,9 @@ int launch_f32(const Args& a, cudaStream_t stream) {
   }
   const dim3 grid(a.B * a.H, (a.Sq + BQ - 1) / BQ);
   if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
-  flash_simt_kernel<D><<<grid, THREADS, smem, stream>>>(
+  COVER(0, (long long)a.B * a.H, 1);
+  COVER(1, a.Sq, BQ);
+  LAUNCH((flash_simt_kernel<D>), grid, THREADS, smem, stream,
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.sq,
       a.sk, a.sv, a.so, a.H, a.Hkv, a.Sq, a.Sk, a.scale, a.causal, a.window,
@@ -573,8 +576,8 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
   }
   const long long items = (long long)a.B * a.H * ((a.Sq + BQ - 1) / BQ);
   if (items > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  flash_mma_kernel<D><<<static_cast<unsigned>(items), MMA_THREADS, smem,
-                        stream>>>(
+  COVER(0, (long long)a.B * a.H * a.Sq, BQ);
+  LAUNCH((flash_mma_kernel<D>), static_cast<unsigned>(items), MMA_THREADS, smem, stream,
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),

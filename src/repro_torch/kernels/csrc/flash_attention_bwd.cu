@@ -88,6 +88,7 @@
 #include <cstdint>
 
 #include "tensor_core.cuh"
+#include "launch_plan.cuh"
 
 namespace {
 
@@ -898,7 +899,8 @@ bool rowdot(const Args& a, cudaStream_t stream) {
   if (row_blocks > 2147483647LL || nq > 65535 || nk > 65535 ||
       (long long)a.B * a.H > 2147483647LL)
     return false;
-  rowdot_kernel<T><<<static_cast<unsigned>(row_blocks), 256, 0, stream>>>(
+  COVER(0, rows, 8);
+  LAUNCH((rowdot_kernel<T>), static_cast<unsigned>(row_blocks), 256, 0, stream,
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.di, a.so,
       a.sdo, a.D, a.H, a.Sq, rows);
   return true;
@@ -924,11 +926,15 @@ int launch_f32(const Args& a, cudaStream_t stream) {
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
   const float* dout = static_cast<const float*>(a.dout);
-  dkdv_simt_kernel<D><<<dim3(a.B * a.Hkv, nk), THREADS, smem_kv, stream>>>(
+  COVER(0, (long long)a.B * a.Hkv, 1);
+  COVER(1, a.Sk, BKV);
+  LAUNCH((dkdv_simt_kernel<D>), dim3(a.B * a.Hkv, nk), THREADS, smem_kv, stream,
       q, k, v, dout, a.lse, a.di, static_cast<float*>(a.dk),
       static_cast<float*>(a.dv), a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.H,
       a.Hkv, a.Sq, a.Sk, a.scale, a.causal, a.window, a.prefix);
-  dq_simt_kernel<D><<<dim3(a.B * a.H, nq), THREADS, smem_q, stream>>>(
+  COVER(0, (long long)a.B * a.H, 1);
+  COVER(1, a.Sq, BQ);
+  LAUNCH((dq_simt_kernel<D>), dim3(a.B * a.H, nq), THREADS, smem_q, stream,
       q, k, v, dout, a.lse, a.di, static_cast<float*>(a.dq), a.sq, a.sk,
       a.sv, a.sdo, a.sdq, a.H, a.Hkv, a.Sq, a.Sk, a.scale, a.causal,
       a.window, a.prefix);
@@ -954,12 +960,15 @@ int launch_bf16(const Args& a, cudaStream_t stream) {
   const bf16* v = static_cast<const bf16*>(a.v);
   const bf16* dout = static_cast<const bf16*>(a.dout);
   const float scale_log2 = a.scale * LOG2E;
-  dkdv_mma_kernel<D><<<dim3(a.B * a.Hkv, nk), MMA_THREADS, smem_kv,
-                       stream>>>(
+  COVER(0, (long long)a.B * a.Hkv, 1);
+  COVER(1, a.Sk, BKV);
+  LAUNCH((dkdv_mma_kernel<D>), dim3(a.B * a.Hkv, nk), MMA_THREADS, smem_kv, stream,
       q, k, v, dout, a.lse, a.di, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.H,
       a.Hkv, a.Sq, a.Sk, scale_log2, a.scale, a.causal, a.window, a.prefix);
-  dq_mma_kernel<D><<<dim3(a.B * a.H, nq), MMA_THREADS, smem_q, stream>>>(
+  COVER(0, (long long)a.B * a.H, 1);
+  COVER(1, a.Sq, BQ);
+  LAUNCH((dq_mma_kernel<D>), dim3(a.B * a.H, nq), MMA_THREADS, smem_q, stream,
       q, k, v, dout, a.lse, a.di, static_cast<bf16*>(a.dq), a.sq, a.sk, a.sv,
       a.sdo, a.sdq, a.H, a.Hkv, a.Sq, a.Sk, scale_log2, a.scale, a.causal,
       a.window, a.prefix);

@@ -43,6 +43,7 @@
 //   a block, 125 blocks of 160 threads, one an SM.
 
 #include "tensor_core.cuh"
+#include "launch_plan.cuh"
 
 namespace {
 
@@ -284,7 +285,9 @@ int launch_main(const float* x, const float* inv, const float* muinv,
     if (err != cudaSuccess) return static_cast<int>(err);
     allowed = smem;
   }
-  estep_kernel<KT, DS><<<grid, FB * RS * DS, smem, s>>>(
+  COVER(0, N, BN);
+  COVER(1, (long long)Bx * r, FB);
+  LAUNCH((estep_kernel<KT, DS>), grid, FB * RS * DS, smem, s,
       x, inv, muinv, cst, out, lse, r, N, K, d, FB, RS, vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -323,8 +326,9 @@ extern "C" int estep_launch(const float* x, const float* mu, const float* var,
   const int threads = FB * RS * DS;
   if (threads % 32 || threads > MAX_THREADS)
     return static_cast<int>(cudaErrorInvalidValue);
-  estep_prep<<<B * K, PREP_THREADS, 0, s>>>(mu, var, pi, inv, muinv, cst, d,
-                                      var_row, var_d);
+  COVER(0, (long long)B * K, 1);
+  LAUNCH((estep_prep), B * K, PREP_THREADS, 0, s, mu, var, pi, inv, muinv,
+         cst, d, var_row, var_d);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int r = B / Bx;

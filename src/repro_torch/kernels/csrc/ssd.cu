@@ -54,6 +54,7 @@
 
 #include "recurrence.cuh"
 #include "tensor_core.cuh"
+#include "launch_plan.cuh"
 
 #include <cstdint>
 
@@ -511,7 +512,8 @@ int launch_bf16(const void* x, const float* a, const void* Bm, const void* Cm,
     if (err2 != cudaSuccess) return static_cast<int>(err2);
     configured = true;
   }
-  ssd_mma_kernel<NP><<<Bt * H, MMA_THREADS, smem, stream>>>(
+  COVER(0, (long long)Bt * H, 1);
+  LAUNCH((ssd_mma_kernel<NP>), Bt * H, MMA_THREADS, smem, stream,
       static_cast<const __nv_bfloat16*>(x), a,
       static_cast<const __nv_bfloat16*>(Bm),
       static_cast<const __nv_bfloat16*>(Cm), s0,
@@ -525,7 +527,8 @@ int launch(const void* x, const float* a, const void* Bm, const void* Cm,
            const float* s0, void* y, float* s_out, const Strides* st, int Bt,
            int H, int Tn, int P, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * TC * P + 2 * TC * N + TC);
-  ssd_kernel<T, N><<<Bt * H, 4 * P, smem, stream>>>(
+  COVER(0, (long long)Bt * H, 1);
+  LAUNCH((ssd_kernel<T, N>), Bt * H, 4 * P, smem, stream,
       static_cast<const T*>(x), a, static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), s0, static_cast<T*>(y), s_out, st[0], st[1],
       st[2], st[3], st[4], H, Tn, P);

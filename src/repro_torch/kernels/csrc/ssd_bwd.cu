@@ -97,6 +97,7 @@
 
 #include "recurrence.cuh"
 #include "tensor_core.cuh"
+#include "launch_plan.cuh"
 
 #include <cstdint>
 
@@ -981,13 +982,15 @@ int launch(const Args& g, const Strides (&s)[6], int Bt, int H, int Tn,
   const T *x = static_cast<const T*>(g.x), *Bm = static_cast<const T*>(g.Bm),
           *Cm = static_cast<const T*>(g.Cm),
           *dy = static_cast<const T*>(g.dy);
-  ssd_bwd_reverse<T, N><<<Bt * H, 4 * P + row_threads<N>(), 0, stream>>>(
+  COVER(0, (long long)Bt * H, 1);
+  LAUNCH((ssd_bwd_reverse<T, N>), Bt * H, 4 * P + row_threads<N>(), 0, stream,
       x, g.a, Bm, Cm, g.s0, dy, g.dsT, static_cast<T*>(g.dx), g.dBh,
       static_cast<A*>(g.xdx), static_cast<A*>(g.c0), g.ds0, s[0], s[1], s[2],
       s[3], s[4], s[5], H, Tn, P);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_forward<T, N><<<Bt * H, row_threads<N>(), 0, stream>>>(
+  COVER(0, (long long)Bt * H, 1);
+  LAUNCH((ssd_bwd_forward<T, N>), Bt * H, row_threads<N>(), 0, stream,
       x, g.a, Bm, Cm, g.s0, dy, static_cast<const A*>(g.xdx),
       static_cast<const A*>(g.c0), g.dCh, g.da, s[0], s[1], s[2], s[3], s[4],
       H, Tn, P);
@@ -995,12 +998,14 @@ int launch(const Args& g, const Strides (&s)[6], int Bt, int H, int Tn,
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long TN = (long long)Tn * N, total = Bt * TN;
   const int blocks = static_cast<int>((total + 255) / 256);
-  ssd_bwd_head_sum<T><<<blocks, 256, 0, stream>>>(g.dBh, static_cast<T*>(g.dB),
-                                                    H, TN, total);
+  COVER(0, total, 256);
+  LAUNCH((ssd_bwd_head_sum<T>), blocks, 256, 0, stream, g.dBh,
+         static_cast<T*>(g.dB), H, TN, total);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_head_sum<T><<<blocks, 256, 0, stream>>>(g.dCh, static_cast<T*>(g.dC),
-                                                    H, TN, total);
+  COVER(0, total, 256);
+  LAUNCH((ssd_bwd_head_sum<T>), blocks, 256, 0, stream, g.dCh,
+         static_cast<T*>(g.dC), H, TN, total);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1017,21 +1022,28 @@ int launch_chunked(ChunkArgs& a, bf16* dB, bf16* dC, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  ssd_bwd_chunk_states<<<dim3(a.nc, a.Bt * a.H), NTH, SMEM1, stream>>>(a);
+  COVER(0, a.Tn, L);
+  COVER(1, (long long)a.Bt * a.H, 1);
+  LAUNCH((ssd_bwd_chunk_states), dim3(a.nc, a.Bt * a.H), NTH, SMEM1, stream, a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_chunk_scan<<<a.Bt * a.H, SCAN_THREADS, 0, stream>>>(a);
+  COVER(0, (long long)a.Bt * a.H, 1);
+  LAUNCH((ssd_bwd_chunk_scan), a.Bt * a.H, SCAN_THREADS, 0, stream, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_chunk_grads<<<dim3(a.nc, a.Bt * a.nG), NTH, SMEM3, stream>>>(a);
+  COVER(0, a.Tn, L);
+  COVER(1, (long long)a.Bt * a.H, HEAD_GROUP);
+  LAUNCH((ssd_bwd_chunk_grads), dim3(a.nc, a.Bt * a.nG), NTH, SMEM3, stream, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long TN = (long long)a.Tn * a.N, total = a.Bt * TN;
   const int blocks = static_cast<int>((total + 255) / 256);
-  ssd_bwd_head_sum<bf16><<<blocks, 256, 0, stream>>>(a.dBp, dB, a.nG, TN, total);
+  COVER(0, total, 256);
+  LAUNCH((ssd_bwd_head_sum<bf16>), blocks, 256, 0, stream, a.dBp, dB, a.nG, TN, total);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_head_sum<bf16><<<blocks, 256, 0, stream>>>(a.dCp, dC, a.nG, TN, total);
+  COVER(0, total, 256);
+  LAUNCH((ssd_bwd_head_sum<bf16>), blocks, 256, 0, stream, a.dCp, dC, a.nG, TN, total);
   return static_cast<int>(cudaGetLastError());
 }
 

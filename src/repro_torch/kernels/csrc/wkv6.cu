@@ -58,6 +58,7 @@
 
 #include "recurrence.cuh"
 #include "tensor_core.cuh"
+#include "launch_plan.cuh"
 
 #include <cstdint>
 
@@ -585,7 +586,8 @@ int launch_bf16(const void* r, const void* k, const void* v, const float* lw,
     if (err2 != cudaSuccess) return static_cast<int>(err2);
     configured = true;
   }
-  wkv6_mma_kernel<<<B * H, MMA_THREADS, MMA_SMEM, stream>>>(
+  COVER(0, (long long)B * H, 1);
+  LAUNCH((wkv6_mma_kernel), B * H, MMA_THREADS, MMA_SMEM, stream,
       static_cast<const __nv_bfloat16*>(r), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), lw, u, s0,
       static_cast<__nv_bfloat16*>(out), s_out, st[0], st[1], st[2], st[3],
@@ -597,7 +599,8 @@ template <int DH>
 int launch(const void* r, const void* k, const void* v, const float* lw,
            const float* u, const float* s0, void* out, float* s_out,
            const Strides* st, int B, int H, int Tn, cudaStream_t stream) {
-  wkv6_kernel<float, DH><<<B * H, 4 * DH, 0, stream>>>(
+  COVER(0, (long long)B * H, 1);
+  LAUNCH((wkv6_kernel<float, DH>), B * H, 4 * DH, 0, stream,
       static_cast<const float*>(r), static_cast<const float*>(k),
       static_cast<const float*>(v), lw, u, s0, static_cast<float*>(out), s_out,
       st[0], st[1], st[2], st[3], st[4], H, Tn);

@@ -110,6 +110,7 @@
 
 #include "recurrence.cuh"
 #include "tensor_core.cuh"
+#include "launch_plan.cuh"
 
 #include <cstdint>
 
@@ -1328,20 +1329,23 @@ int launch(const Args& a, const Strides (&s)[9], int B, int H, int Tn,
   const T *r = static_cast<const T*>(a.r), *k = static_cast<const T*>(a.k),
           *v = static_cast<const T*>(a.v),
           *dout = static_cast<const T*>(a.dout);
-  wkv6_bwd_reverse<T, DH><<<B * H, 8 * DH, 0, stream>>>(
+  COVER(0, (long long)B * H, 1);
+  LAUNCH((wkv6_bwd_reverse<T, DH>), B * H, 8 * DH, 0, stream,
       r, k, v, a.lw, a.u, a.s0, dout, a.dsT, static_cast<T*>(a.dk),
       static_cast<T*>(a.dv), static_cast<A*>(a.kdk), static_cast<A*>(a.c0),
       a.ds0, a.du_part, s[0], s[1], s[2], s[3], s[4], s[6], s[7], H, Tn);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  wkv6_bwd_forward<T, DH><<<B * H, 4 * DH, 0, stream>>>(
+  COVER(0, (long long)B * H, 1);
+  LAUNCH((wkv6_bwd_forward<T, DH>), B * H, 4 * DH, 0, stream,
       r, k, v, a.lw, a.u, a.s0, dout, static_cast<const A*>(a.kdk),
       static_cast<const A*>(a.c0), static_cast<T*>(a.dr), a.dlw, s[0], s[1],
       s[2], s[3], s[4], s[5], s[8], H, Tn);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int HD = H * DH;
-  wkv6_bwd_du<<<(HD + 255) / 256, 256, 0, stream>>>(a.du_part, a.du, B, HD);
+  COVER(0, HD, 256);
+  LAUNCH((wkv6_bwd_du), (HD + 255) / 256, 256, 0, stream, a.du_part, a.du, B, HD);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1363,18 +1367,24 @@ int launch_chunked(ChunkArgs& a, cudaStream_t stream) {
     configured = true;
   }
   const dim3 grid(a.nc, a.B * a.H);
-  wkv6_bwd_chunk_states<<<grid, NTH, SMEM1, stream>>>(a);
+  COVER(0, a.Tn, L);
+  COVER(1, (long long)a.B * a.H, 1);
+  LAUNCH((wkv6_bwd_chunk_states), grid, NTH, SMEM1, stream, a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  wkv6_bwd_chunk_scan<<<a.B * a.H, SCAN_THREADS, 0, stream>>>(a);
+  COVER(0, (long long)a.B * a.H, 1);
+  LAUNCH((wkv6_bwd_chunk_scan), a.B * a.H, SCAN_THREADS, 0, stream, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  wkv6_bwd_chunk_grads<<<grid, NTH, SMEM3, stream>>>(a);
+  COVER(0, a.Tn, L);
+  COVER(1, (long long)a.B * a.H, 1);
+  LAUNCH((wkv6_bwd_chunk_grads), grid, NTH, SMEM3, stream, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int HD = a.H * a.Dh;
-  wkv6_bwd_du<<<(HD + 255) / 256, 256, 0, stream>>>(a.du_part, a.du,
-                                                    a.B * a.nc, HD);
+  COVER(0, HD, 256);
+  LAUNCH((wkv6_bwd_du), (HD + 255) / 256, 256, 0, stream, a.du_part, a.du,
+         a.B * a.nc, HD);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -189,5 +189,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         status = _launch_fn()(*ptrs, strides, *tail)
     _build.check(status, "flash_attention_launch")
-    LAUNCHES["flash_attention"] += 1
+    _build.count(LAUNCHES, "flash_attention")
     return (out, lse) if return_lse else out

@@ -144,7 +144,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         Sk, D, int(causal), int(window), int(prefix),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "flash_attention_bwd_launch")
-    LAUNCHES["flash_attention_bwd"] += 1
+    _build.count(LAUNCHES, "flash_attention_bwd")
     return dq, dk, dv
 
 

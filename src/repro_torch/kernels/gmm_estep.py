@@ -199,7 +199,7 @@ def _launch(x, mu, var, pi, *, fused: bool
         out.data_ptr(), lse.data_ptr() if fused else None,
         Bx, B, N, K, d, *plan, int(vec), stream(dev))
     _build.check(status, "estep_launch")
-    LAUNCHES["estep_fused" if fused else "estep"] += 1
+    _build.count(LAUNCHES, "estep_fused" if fused else "estep")
     return out, lse
 
 

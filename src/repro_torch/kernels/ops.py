@@ -13,12 +13,15 @@ of the forward.
 ``record_calls`` lists the wrappers' calls on any device: their shapes,
 layouts and keywords (the dry run reads the attention masks from it, and
 ``chip_smoke.py`` replays each call against its plain version).
+``OUTPUT_CHECKS`` receives each wrapper's name and outputs on any device:
+a kernel writes through ``ctypes``, where no dispatch mode sees it, so
+``analysis.sanitize`` checks the outputs for NaN / Inf here.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -34,7 +37,7 @@ from repro_torch.kernels import wkv6_bwd as _wkv6b
 
 __all__ = ["gmm_estep", "gmm_estep_fused", "attention", "attention_cached",
            "wkv6", "ssd", "launch_counts", "reset_launch_counts",
-           "record_calls", "Call", "TensorSpec"]
+           "record_calls", "Call", "TensorSpec", "OUTPUT_CHECKS"]
 
 _KERNEL_COUNTS = (_ge.LAUNCHES, _fa.LAUNCHES, _fab.LAUNCHES, _ac.LAUNCHES,
                   _wkv6.LAUNCHES, _wkv6b.LAUNCHES, _ssd.LAUNCHES,
@@ -79,6 +82,15 @@ class Call:
 
 
 _RECORDING: List[List[Call]] = []
+# (wrapper name, outputs) → None or raise; armed by analysis.sanitize
+OUTPUT_CHECKS: List[Callable[[str, object], None]] = []
+
+
+def _checked(name: str, out):
+    """``out`` after every armed output check has read it."""
+    for check in OUTPUT_CHECKS:
+        check(name, out)
+    return out
 
 
 @contextlib.contextmanager
@@ -121,8 +133,8 @@ def _record_backward(call: Optional[Call], out: torch.Tensor) -> None:
 def gmm_estep(x, mu, var, pi):
     """(N, d) × (K, d) diag/spher E-step numerators → (N, K)."""
     if x.is_cuda:
-        return _ge.estep(x, mu, var, pi)
-    return ref.estep_ref(x, mu, var, pi)
+        return _checked("gmm_estep", _ge.estep(x, mu, var, pi))
+    return _checked("gmm_estep", ref.estep_ref(x, mu, var, pi))
 
 
 def gmm_estep_fused(x, mu, var, pi):
@@ -132,8 +144,8 @@ def gmm_estep_fused(x, mu, var, pi):
     be (Bx, N, d) shared by B // Bx consecutive fits.
     """
     if x.is_cuda:
-        return _ge.estep_fused(x, mu, var, pi)
-    return ref.estep_fused_ref(x, mu, var, pi)
+        return _checked("gmm_estep_fused", _ge.estep_fused(x, mu, var, pi))
+    return _checked("gmm_estep_fused", ref.estep_fused_ref(x, mu, var, pi))
 
 
 def attention(q, k, v, *, causal=True, window=0, prefix=0):
@@ -150,7 +162,7 @@ def attention(q, k, v, *, causal=True, window=0, prefix=0):
         o = ref.attention_ref(q, k, v, causal=causal, window=window,
                               prefix=prefix)
     _record_backward(call, o)
-    return o
+    return _checked("attention", o)
 
 
 def attention_cached(q, k, v, q_pos, kv_pos, *, causal=True, window=0):
@@ -160,10 +172,12 @@ def attention_cached(q, k, v, q_pos, kv_pos, *, causal=True, window=0):
     _record("attention_cached", (q, k, v, q_pos, kv_pos), False,
             (q_pos, kv_pos), causal=causal, window=window)
     if q.is_cuda:
-        return _ac.attention_cached(q, k, v, q_pos, kv_pos, causal=causal,
-                                    window=window)
-    return ref.attention_positions_ref(q, k, v, q_pos, kv_pos,
-                                       causal=causal, window=window)
+        o = _ac.attention_cached(q, k, v, q_pos, kv_pos, causal=causal,
+                                 window=window)
+    else:
+        o = ref.attention_positions_ref(q, k, v, q_pos, kv_pos,
+                                        causal=causal, window=window)
+    return _checked("attention_cached", o)
 
 
 def wkv6(r, k, v, lw, u, s0, chunk: int = 16):
@@ -172,9 +186,12 @@ def wkv6(r, k, v, lw, u, s0, chunk: int = 16):
             chunk=chunk)
     if r.is_cuda:
         if _wants_grad(r, k, v, lw, u, s0):
-            return _wkv6b.WKV6.apply(r, k, v, lw, u, s0, chunk)
-        return _wkv6.wkv6(r, k, v, lw, u, s0, chunk=chunk)
-    return ref.wkv6_ref(r, k, v, lw, u, s0, chunk=chunk)
+            out = _wkv6b.WKV6.apply(r, k, v, lw, u, s0, chunk)
+        else:
+            out = _wkv6.wkv6(r, k, v, lw, u, s0, chunk=chunk)
+    else:
+        out = ref.wkv6_ref(r, k, v, lw, u, s0, chunk=chunk)
+    return _checked("wkv6", out)
 
 
 def ssd(x, a_log, B, C, s0, chunk: int = 64):
@@ -183,9 +200,12 @@ def ssd(x, a_log, B, C, s0, chunk: int = 64):
             chunk=chunk)
     if x.is_cuda:
         if _wants_grad(x, a_log, B, C, s0):
-            return _ssdb.SSD.apply(x, a_log, B, C, s0, chunk)
-        return _ssd.ssd(x, a_log, B, C, s0, chunk=chunk)
-    return ref.ssd_ref(x, a_log, B, C, s0, chunk=chunk)
+            out = _ssdb.SSD.apply(x, a_log, B, C, s0, chunk)
+        else:
+            out = _ssd.ssd(x, a_log, B, C, s0, chunk=chunk)
+    else:
+        out = ref.ssd_ref(x, a_log, B, C, s0, chunk=chunk)
+    return _checked("ssd", out)
 
 
 def launch_counts() -> Dict[str, int]:

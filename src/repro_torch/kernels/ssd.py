@@ -105,5 +105,5 @@ def ssd(x: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
         ctypes.addressof(strides), _DTYPES[x.dtype], Bt, H, T, N, P,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "ssd_launch")
-    LAUNCHES["ssd"] += 1
+    _build.count(LAUNCHES, "ssd")
     return y, s_out

@@ -141,7 +141,7 @@ def ssd_bwd(x: torch.Tensor, a_log: torch.Tensor, B: torch.Tensor,
         *ptrs, ctypes.addressof(strides), Bt, H, T, N, P,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, name)
-    LAUNCHES["ssd_bwd"] += 1
+    _build.count(LAUNCHES, "ssd_bwd")
     return dx, da, dB, dC, ds0
 
 

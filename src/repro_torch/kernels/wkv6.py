@@ -101,5 +101,5 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ctypes.addressof(strides), _DTYPES[r.dtype], B, H, T, Dh,
         torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(status, "wkv6_launch")
-    LAUNCHES["wkv6"] += 1
+    _build.count(LAUNCHES, "wkv6")
     return out, s_out

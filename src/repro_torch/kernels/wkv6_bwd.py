@@ -145,7 +145,7 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *ptrs, ctypes.addressof(strides), B, H, T, Dh,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, name)
-    LAUNCHES["wkv6_bwd"] += 1
+    _build.count(LAUNCHES, "wkv6_bwd")
     return dr, dk, dv, dlw, du, ds0
 
 

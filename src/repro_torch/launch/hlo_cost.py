@@ -107,6 +107,22 @@ class _Ops(TorchDispatchMode):
         return out
 
 
+class OpTrace(TorchDispatchMode):
+    """The sequence of dispatched operations, each with its outputs'
+    shapes and dtypes (``analysis.compile`` compares two runs)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        shapes = [(tuple(t.shape), str(t.dtype)) for t in tree_flatten(out)[0]
+                  if isinstance(t, torch.Tensor)]
+        self.ops.append(f"{func} -> {shapes}")
+        return out
+
+
 def count(fn: Callable, *args: Any, **kwargs: Any) -> Cost:
     """The :class:`Cost` of one call ``fn(*args, **kwargs)``."""
     with record_collectives() as tally:

@@ -17,6 +17,7 @@ import torch
 
 from repro.fl import faults as JF
 from repro.fl import ingest as JI
+from repro_torch.analysis import sanitize
 from repro_torch.core import gmm as G
 from repro_torch.core import head as H
 from repro_torch.fl import api as A
@@ -138,9 +139,21 @@ def _session(**kw):
         head=H.HeadConfig(n_steps=12, batch_size=16, lr=3e-3), **kw)
 
 
-def test_streaming_is_bitwise_the_fused_round_under_capacity():
+@pytest.fixture()
+def port_sanitized():
+    """The port's runtime sanitizer (NaN / Inf checks on every op and
+    kernel output, the generator stream tracer) armed for one test; a
+    deliberate same-seed rerun calls ``port_sanitized.reset()``."""
+    with sanitize() as state:
+        yield state
+
+
+def test_streaming_is_bitwise_the_fused_round_under_capacity(
+        port_sanitized):
     data = _clients(5, seed=3)
     fused = _session().run(data, seed=4, device="cpu")
+    # each run replays seed 4's streams on purpose
+    port_sanitized.reset()
     stream = _session(ingest=I.IngestConfig(capacity=32, chunk_size=2)).run(
         data, seed=4, device="cpu")
     for k in ("w", "b"):
@@ -154,11 +167,13 @@ def test_streaming_is_bitwise_the_fused_round_under_capacity():
     # the messages-in-hand ingest path shares the state machine
     msgs = fused.messages
     dev = torch.device("cpu")
+    port_sanitized.reset()
     agg = _session(ingest=I.IngestConfig(capacity=32, chunk_size=2)) \
         .server_aggregate(msgs, generator=A.round_generator(4, 0, dev),
                           device=dev)
     for k in ("w", "b"):
         assert torch.equal(agg.model[k], fused.model[k])
+    assert port_sanitized.n_errors == 0 and port_sanitized.n_checked > 0
 
 
 def test_over_capacity_evicts_and_still_trains():

@@ -19,6 +19,7 @@ import torch
 from repro import serve as JS
 from repro.configs import get_config as j_get_config
 from repro.models import model as JM
+from repro_torch.analysis import sanitize
 from repro_torch.core import gmm as G
 from repro_torch.core import head as H
 from repro_torch.fl import ingest as IG
@@ -107,7 +108,16 @@ def test_features_match_the_reference_feature_step(model):
                                atol=1e-6)
 
 
-def test_service_head_bitwise_the_offline_session(model):
+@pytest.fixture()
+def port_sanitized():
+    """The port's runtime sanitizer (NaN / Inf checks on every op and
+    kernel output, the generator stream tracer) armed for one test; a
+    deliberate same-seed rerun calls ``port_sanitized.reset()``."""
+    with sanitize() as state:
+        yield state
+
+
+def test_service_head_bitwise_the_offline_session(model, port_sanitized):
     """Extraction through the pool, messages through the broker, the close
     through the warmed program cache: the head is bitwise the offline
     streaming session's on the same features and seed, and the close
@@ -119,9 +129,12 @@ def test_service_head_bitwise_the_offline_session(model):
     misses0 = svc.session.program_cache.misses
     res = svc.close_round(seed=9)
     assert svc.session.program_cache.misses == misses0
+    # the offline session replays seed 9's streams on purpose
+    port_sanitized.reset()
     off = _session(cache=ProgramCache()).run(datasets, seed=9, device="cpu")
     assert _same_head(res.model, off.model)
     assert res.info["comm_bytes"] == off.info["comm_bytes"]
+    assert port_sanitized.n_errors == 0 and port_sanitized.n_checked > 0
 
 
 def test_interleaved_extract_and_infer(model):

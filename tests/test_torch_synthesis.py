@@ -22,6 +22,7 @@ import torch
 from repro.core import head as JH
 from repro.fl import api as JA
 from repro_torch import data as D
+from repro_torch.analysis import sanitize
 from repro_torch.core import fedpft as FP
 from repro_torch.core import gmm as G
 from repro_torch.core import head as H
@@ -29,6 +30,15 @@ from repro_torch.fl import api as A
 
 HEAD_TOL = 1e-4
 SKEWED = np.asarray([[5, 0, 17, 1], [2, 9, 0, 33]], np.int64)
+
+
+@pytest.fixture()
+def port_sanitized():
+    """The port's runtime sanitizer (NaN / Inf checks on every op and
+    kernel output, the generator stream tracer) armed for one test; a
+    deliberate same-seed rerun calls ``port_sanitized.reset()``."""
+    with sanitize() as state:
+        yield state
 
 
 def _t(a):
@@ -123,12 +133,13 @@ class TestSynthesisParity:
             np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=1e-5,
                                        atol=1e-5)
 
-    def test_synthesize_looped_with_reference_draws(self):
+    def test_synthesize_looped_with_reference_draws(self, port_sanitized):
         b = _batch(3)
         key = jax.random.PRNGKey(6)
         fj, yj = JA.synthesize_looped(key, b, SKEWED, "diag")
         ft, yt = A.synthesize_looped(_port(b), SKEWED, "diag",
                                      draws=_ref_draw_fn(key, b))
+        assert port_sanitized.n_values > 0
         np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
         np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=1e-5,
                                    atol=1e-5)
