@@ -15,6 +15,13 @@ foundation features → per-client class-wise diag GMMs by batched EM →
 bf16 wire → the server's fused head → accuracy against the centralized
 oracle.  Launch counters, zeroed before each path and read after it, show
 that each path ran through its kernels and never through a plain version.
+While each backbone's weights are live, the ``depth`` phase runs two rows
+of its first batch through the whole stack layer by layer, three passes in
+step: the kernel stack (every flash, ``wkv6`` and ``ssd`` call held against
+its plain version in f32 on its own inputs; its features ``features``' bit
+for bit), the plain stack in bf16 and the plain stack in f32, with each
+layer's carried error of the first two against the third; hubert-xlarge
+then serves one batch through ``serve.make_encode_step``.
 
 On hubert-xlarge's features (no feature is extracted twice) six more
 paths run, each one line: full-covariance FedPFT (K = 1, the tril-packed
@@ -1122,6 +1129,10 @@ def main_path(torch, dev, card, name, keep=None, extra=None):
     check_close(torch, f"features of {name} (2 layers, card vs CPU plain "
                 "path)", on_card.cpu(), on_cpu, ATTN_TOL_BF16, n=2,
                 **cut, cpu_s=time.perf_counter() - t0)
+    if extra is not None:
+        extra.update(depth_phase(torch, dev, card, cfg, params, name,
+                                 {key: inp[:DEPTH_ROWS]},
+                                 {key: inp[:batch]}))
     if keep is not None:
         # features_of keeps the weights alive for the shift phase's inputs
         # until the caller clears ``keep``
@@ -1138,6 +1149,275 @@ def main_path(torch, dev, card, name, keep=None, extra=None):
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+# ---- depth: the main path's stack held layer by layer at full depth
+
+# rows of the main path's first batch that the depth phase runs
+DEPTH_ROWS = 2
+# the kernel each kind of block calls (``block_plan``)
+BLOCK_KERNEL = {"transformer": "flash_attention", "shared": "flash_attention",
+                "rwkv6": "wkv6", "mamba2": "ssd"}
+# the wrappers of ``kernels.ops`` that the depth phase swaps, and the
+# names their kernels count launches under
+DEPTH_OPS = {"attention": "flash_attention", "wkv6": "wkv6", "ssd": "ssd"}
+
+
+def block_plan(cfg):
+    """(kind, index) of each block in the order the stack runs them: the
+    transformer or RWKV6 layers, or the hybrid's Mamba2 layers with the
+    shared block after every ``attn_every``-th (its use u)."""
+    if cfg.family == "hybrid":
+        plan = []
+        for i in range(cfg.n_layers):
+            plan.append(("mamba2", i))
+            if (i + 1) % cfg.attn_every == 0:
+                plan.append(("shared", i // cfg.attn_every))
+        return plan
+    kind = "rwkv6" if cfg.family == "ssm" else "transformer"
+    return [(kind, i) for i in range(cfg.n_layers)]
+
+
+def layer_steps(torch, cfg, params, batch, f32=False):
+    """The model's own blocks over ``batch``, one layer at a time, the
+    stacks indexed as ``select_layers`` does: yields ((kind, index), the
+    hidden state (B, S, d)) after each block of ``block_plan``, then
+    ("pooled", None) with the (B, d) f32 features, which are those of
+    ``models.model.features`` bit for bit.  With ``f32`` the config's
+    dtype is f32 and each layer's weights are cast to f32 as its block is
+    reached (the shared block once, at its first use): ``features`` on
+    f32 weights.  Runs where the parameters live, under the caller's grad
+    mode."""
+    import dataclasses
+
+    from repro_torch.models import layers
+    from repro_torch.models import mamba2 as MB
+    from repro_torch.models import model as M
+    from repro_torch.models import rwkv as RW
+
+    def cast(w):
+        return {k: v.float() for k, v in w.items()} if f32 else w
+
+    dev = params["final_norm"].device
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    embed = cast({k: v for k, v in params.items()
+                  if k in ("frame_proj", "mask_emb", "embed", "img_proj")})
+    x, positions = M._embed_inputs(cfg, embed, batch)
+    del embed
+    blocks = select_layers(params["blocks"])
+    if cfg.family == "ssm":
+        zero = M._layer(RW.init_rwkv_state(cfg, x.shape[0], dev, n_layers=1),
+                        0)
+    elif cfg.family == "hybrid":
+        zero = M._layer(MB.init_mamba_state(cfg, 1, x.shape[0], dev), 0)
+    shared = None
+    for kind, i in block_plan(cfg):
+        if kind == "rwkv6":
+            x, _ = RW.rwkv_block(cfg, x, cast(blocks[i]), zero)
+        elif kind == "mamba2":
+            x, _ = MB.mamba_block(cfg, x, cast(blocks[i]), zero)
+        else:
+            if kind == "shared" and shared is None:
+                shared = cast(params["shared_attn"])
+            w = shared if kind == "shared" else cast(blocks[i])
+            x, _ = M._transformer_block(cfg, x, w, positions=positions)
+            del w
+        yield (kind, i), x
+    h = layers.rms_norm(x, params["final_norm"].float() if f32
+                        else params["final_norm"])
+    yield ("pooled", None), h.float().mean(dim=1)
+
+
+def launches_of(counts):
+    """(the kernels that ``counts`` saw launched, by name; the plain
+    versions' calls on CUDA tensors, in all)."""
+    return ({k: v for k, v in counts.items()
+             if v and not k.startswith("plain_on")},
+            sum(v for k, v in counts.items() if k.startswith("plain_on")))
+
+
+def depth_phase(torch, dev, card, cfg, params, name, rows, encode_batch):
+    """``name``'s stack at full width and depth on ``rows`` (two rows of
+    the main path's first batch), layer by layer, three passes in step:
+
+    1. the kernel stack (bf16): the main path's own code, every
+       ``ops.attention`` / ``wkv6`` / ``ssd`` call launching its kernel
+       and then held against its plain version in f32 on that call's own
+       inputs (``check_close``, the dry-run checks' tolerances: a call
+       outside them fails the phase);
+    2. the plain stack (bf16): the plain versions in place of the three
+       kernels;
+    3. the plain stack in f32, each layer's weights cast as it is reached.
+
+    Each block's carried error of passes 1 and 2 against pass 3, max |Δh|
+    / max |h_f32|, is reported, not gated; every value must be finite.
+    Pass 1's features equal ``features`` bit for bit; its launches are the
+    main path's per batch, and passes 2 and 3 launch none.  The swap is
+    undone in a ``finally``.  For the encoder, ``serve.make_encode_step``
+    then runs on ``encode_batch``: flash once a layer, no plain version.
+    Returns the launch counts of pass 1 (and of the encode step)."""
+    from collections import Counter
+
+    from repro_torch import serve as S
+    from repro_torch.kernels import checks, ops, ref
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+
+    plain = {"attention": ref.attention_ref, "wkv6": ref.wkv6_ref,
+             "ssd": ref.ssd_ref}
+    # the main path runs in bf16: the dry-run checks' bf16 tolerances
+    tol = {"attention": checks.FLASH_TOL_BF16, "wkv6": REC_TOL_BF16,
+           "ssd": REC_TOL_BF16}
+    kernel = {n: getattr(ops, n) for n in DEPTH_OPS}
+    at = {"step": 0}
+    worst = {}
+
+    def held(n):
+        def call(*args, **kw):
+            out = kernel[n](*args, **kw)
+            exp = plain[n](*(a.float() for a in args), **kw)
+            pairs = (zip(("out",), (out,), (exp,)) if n == "attention"
+                     else zip(("out", "state"), out, exp))
+            for o, a, e in pairs:
+                err = check_close(torch, DEPTH_OPS[n], a, e, tol[n],
+                                  case=f"depth {name}", step=at["step"],
+                                  output=o, shape=list(a.shape))
+                e = e.float()
+                share = float(((a.float() - e).abs()
+                               / (tol[n] + tol[n] * e.abs())).max())
+                key = f"{DEPTH_OPS[n]}/{o}"
+                w = worst.setdefault(key, {"calls": 0, "max_abs_err": 0.0,
+                                           "share_of_bound": 0.0})
+                w["calls"] += 1
+                w["max_abs_err"] = max(w["max_abs_err"], err)
+                w["share_of_bound"] = max(w["share_of_bound"], share)
+                w["tol"] = tol[n]
+            return out
+        return call
+
+    swaps = {"kernel": {n: held(n) for n in DEPTH_OPS},
+             "plain": plain, "f32": plain}
+    torch.cuda.synchronize()
+    want = M.features(cfg, params, rows, device=dev.type)
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    runs = {p: layer_steps(torch, cfg, params, rows, f32=p == "f32")
+            for p in swaps}
+    steps, carried = [], {"kernel": [], "plain": []}
+    try:
+        with torch.no_grad():
+            while True:
+                h = {}
+                for p, run in runs.items():
+                    for n, fn in swaps[p].items():
+                        setattr(ops, n, fn)
+                    before = launches_of(ops.launch_counts())[0]
+                    at["step"] = len(steps) + 1
+                    block, h[p] = next(run)
+                    if (p != "kernel"
+                            and launches_of(ops.launch_counts())[0] != before):
+                        raise AssertionError(f"depth {name}: the {p} pass "
+                                             f"launched a kernel at {block}")
+                for p, t in h.items():
+                    if not bool(torch.isfinite(t).all()):
+                        raise AssertionError(f"depth {name}: the {p} pass "
+                                             f"is not finite at {block}")
+                scale = float(h["f32"].abs().max())
+                for p in carried:
+                    carried[p].append(float(
+                        (h[p].float() - h["f32"]).abs().max()) / scale)
+                kind, index = block
+                if kind != "pooled":
+                    hidden = h["kernel"]          # pass 1's last block
+                steps.append(block)
+                emit({"phase": "depth_layer", "model": name,
+                      "step": len(steps), "block": kind, "index": index,
+                      "kernel": BLOCK_KERNEL.get(kind),
+                      "carried_kernel": carried["kernel"][-1],
+                      "carried_plain": carried["plain"][-1],
+                      "max_abs_f32": scale})
+                if kind == "pooled":
+                    break
+    finally:
+        for n, fn in kernel.items():
+            setattr(ops, n, fn)
+        for run in runs.values():
+            run.close()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    launched, plain_calls = launches_of(counts)
+    expect = {k: f(cfg) for k, f in PATHS[name].items()}
+    bitwise = bool(torch.equal(h["kernel"], want))
+
+    # the carried error at layers 1, 1/4, 1/2, 3/4 and the last, and the
+    # first block past which pass 1 carries over twice pass 2's error
+    n = len(steps) - 1
+    at_points = {q: (carried["kernel"][i - 1], carried["plain"][i - 1])
+                 for q, i in (("1", 1), ("1/4", max(1, n // 4)),
+                              ("1/2", max(1, n // 2)),
+                              ("3/4", max(1, 3 * n // 4)), ("last", n))}
+    drift = None
+    if carried["kernel"][n - 1] > 2 * carried["plain"][n - 1]:
+        first = next(i for i in range(n)
+                     if carried["kernel"][i] > 2 * carried["plain"][i])
+        drift = {"step": first + 1, "block": steps[first][0],
+                 "index": steps[first][1],
+                 "kernel": BLOCK_KERNEL[steps[first][0]]}
+    emit({"phase": "depth", "model": name, "card": card,
+          "rows": int(want.shape[0]), "n_layers": cfg.n_layers,
+          "blocks": n, "kinds": dict(Counter(k for k, _ in steps[:-1])),
+          "launches": launched, "expected_launches": expect,
+          "plain_calls": plain_calls,
+          "held": worst, "carried": at_points,
+          "carried_pooled": {"kernel": carried["kernel"][-1],
+                             "plain": carried["plain"][-1]},
+          "kernel_over_2x_plain": drift,
+          "features_bitwise": bitwise, "s": seconds})
+    if launched != expect:
+        raise AssertionError(f"depth {name}: pass 1 launched {launched}, "
+                             f"not the main path's {expect} a batch")
+    if not bitwise:
+        raise AssertionError(f"depth {name}: pass 1's features are not "
+                             "features' bit for bit")
+    out = {f"depth/{name}": counts}
+
+    if cfg.family == "encoder":
+        # the encoder's serving step: one full encode through the kernels
+        encode = S.make_encode_step(cfg, device=dev.type)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        logits = encode(params, encode_batch)
+        torch.cuda.synchronize()
+        t_encode = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        launched, plain_calls = launches_of(counts)
+        B, Sq = next(iter(encode_batch.values())).shape[:2]
+        # the encode step is the stack of pass 1: the same logits on its
+        # rows, bit for bit
+        same = bool(torch.equal(
+            encode(params, rows),
+            M._logits(cfg, params, layers.rms_norm(
+                hidden, params["final_norm"]))))
+        emit({"phase": "encode_step", "model": name, "card": card,
+              "batch": int(B), "seq_len": int(Sq),
+              "logits_shape": list(logits.shape), "s": t_encode,
+              "launches": launched, "plain_on_cuda": plain_calls,
+              "finite": bool(torch.isfinite(logits).all()),
+              "pass1_logits_bitwise": same})
+        if launched != {"flash_attention": cfg.n_layers} or plain_calls:
+            raise AssertionError(f"encode step of {name}: launches "
+                                 f"{launched}, plain {plain_calls}")
+        if (tuple(logits.shape) != (B, Sq, cfg.vocab_size)
+                or not bool(torch.isfinite(logits).all()) or not same):
+            raise AssertionError(f"encode step of {name}: logits "
+                                 f"{tuple(logits.shape)}, finite or "
+                                 "equal to pass 1's failed")
+        out[f"encode_step/{name}"] = counts
+    return out
 
 
 # the serving runs of each decode-capable backbone: the server's pool,

@@ -2,11 +2,14 @@
 ``repro/core/distributed.py``; DESIGN.md §5).
 
 Each rank of the mesh's "data" axis owns I / n consecutive clients and
-fits their classwise GMMs as ONE batched EM (one fused E-step launch per
-EM iteration on the card), packs the bf16 wire (``gmm.pack_wire``) and
-all-gathers it: that collective IS the one-shot round, so its operand
-bytes are exactly Eqs. 9-11 for the rank's clients.  Every rank returns
-the replicated (I, C, K, …) wire; the server side then runs on it.
+fits each client's classwise GMMs as one batched EM of its C fits (one
+fused E-step launch per client and EM iteration on the card; a stack of
+several clients would change the arithmetic's order with the rank
+count), packs the bf16 wire (``gmm.pack_wire``) and all-gathers it: that
+collective IS the one-shot round, so its operand bytes are exactly Eqs.
+9-11 for the rank's clients.  Every rank returns the replicated (I, C,
+K, …) wire, bit for bit the same for any rank count; the server side
+then runs on it.
 
 Each client's k-means draws come from a ``torch.Generator`` seeded by
 ``seed`` + its global id (:func:`client_seeds`), so the result does not
@@ -153,8 +156,18 @@ def fedpft_transfer(mesh, feats: torch.Tensor, labels: torch.Tensor,
     else:
         init_idx = init_idx[own].reshape(I_local * C, K)
         jitter = jitter[own].reshape(I_local * C, K, d)
-    gmms, counts, lls = G.fit_classwise_gmms_batched(
-        f, y, C, cfg, init_idx=init_idx, jitter=jitter)
+    # one batched EM per client (its C fits): a client's fit is then the
+    # same computation whatever the rank count.  A stack of several
+    # clients' fits is not: its size changes the E-step's launch plan,
+    # cuBLAS's batched products and the reductions' order
+    # (tests/probe_shard_fit.py), so 1 and n ranks would differ in bits
+    fits = [G.fit_classwise_gmms_batched(
+        f[j:j + 1], y[j:j + 1], C, cfg,
+        init_idx=init_idx[j * C:(j + 1) * C],
+        jitter=jitter[j * C:(j + 1) * C]) for j in range(I_local)]
+    gmms = {k: torch.cat([g[k] for g, _, _ in fits]) for k in fits[0][0]}
+    counts = torch.cat([c for _, c, _ in fits])
+    lls = torch.cat([ll for _, _, ll in fits])
     packed = G.pack_wire(gmms, cfg.cov_type)
     # ---- the one-shot transfer: GMM parameters cross the mesh ----
     wire = {k: all_gather(v, group, "wire") for k, v in packed.items()}

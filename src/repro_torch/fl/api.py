@@ -50,9 +50,9 @@ deterministic fault schedule (``fl.faults``).
 Mesh execution (DESIGN.md §5): ``FedSession(mesh=…)`` or ``shards=n``
 runs the round as ``torch.distributed`` collectives
 (:meth:`FedSession.run_sharded`): each rank of the "data" axis fits its
-clients as one batched EM, the bf16 wire crosses the mesh in one
-all-gather (``core.distributed.fedpft_transfer``), and every rank
-decodes it through the host codec (:func:`messages_from_wire`) and
+clients, each as one batched EM of its C fits, the bf16 wire crosses the
+mesh in one all-gather (``core.distributed.fedpft_transfer``), and every
+rank decodes it through the host codec (:func:`messages_from_wire`) and
 trains the same head.  A materializing server transforms each bucket's
 rows rank by rank (:func:`_shard_bucket`) from draws every rank makes
 whole, so the samples do not depend on the rank count.
@@ -1389,7 +1389,7 @@ class FedSession:
         if self.client_summarizers is not None:
             raise NotImplementedError(
                 "FedSession(sharded): heterogeneous client_summarizers "
-                "can't batch into one batched EM per rank — run the host "
+                "can't share the mesh round's one GMMConfig — run the host "
                 "Star path for mixed-K/cov cohorts (paper §6.3)")
         if self.summarizer.kind != "gmm":
             raise NotImplementedError(
@@ -1421,13 +1421,13 @@ class FedSession:
         ``feats``: (I, N, d) — I clients, N padded samples; ``labels``:
         (I, N) with −1 padding; every rank passes the whole cohort.
         Client phase: each rank of the "data" axis fits its I / n clients'
-        classwise GMMs as one batched EM (client i's draws seeded
-        ``transfer_seed + i``) and all-gathers the bf16 wire — that
+        classwise GMMs, each client as one batched EM (client i's draws
+        seeded ``transfer_seed + i``) and all-gathers the bf16 wire — that
         collective is the round.  Server phase: the replicated wire
         decodes through the host codec's layout
         (:func:`messages_from_wire`), and :meth:`server_aggregate` runs
         on every rank from ``round_generator(seed, 0)``.  Results do not
-        depend on the rank count.  ``info`` adds ``n_shards``,
+        depend on the rank count, bit for bit.  ``info`` adds ``n_shards``,
         ``mesh_axes``, ``mesh_wire_bytes`` (what the wire all-gather
         moved in all) and ``phase_s``.
         """

@@ -25,7 +25,9 @@ every version in turn, then again in the reverse order (A B … B A), each
 in a child process that imports that version's ``repro_torch``, builds
 its kernels into the version's own ``build/kernels/``, holds flash at the
 encoder's and zamba2-7b's shapes and at ``checks.FLASH_CASES`` (the wide
-heads, MQA), ``ssd`` at the zamba2-7b path's shape,
+heads, MQA; a case whose head dim the version's flash source does not
+instantiate, as D = 160 and 192 in ``kernels/variants/``, is reported as
+``skipped``), ``ssd`` at the zamba2-7b path's shape,
 ``wkv6`` at the rwkv6-3b path's shape, the two E-steps and
 ``attention_cached`` at the serving paths' shapes
 (``checks.CACHED_CASES``) against their plain versions, and times each
@@ -64,11 +66,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Tuple
 
 N_TIMED = 25
 # name: B, H, S, D, causal (the encoder's and zamba2-7b's shared block)
@@ -137,6 +141,39 @@ GROUPS = {"flash": "flash_attention.cu", "ssd": "ssd.cu", "wkv6": "wkv6.cu",
           "estep": "gmm_estep.cu", "cached": "attention_cached.cu",
           "bwd": "flash_attention_bwd.cu", "wkv6_bwd": "wkv6_bwd.cu",
           "ssd_bwd": "ssd_bwd.cu"}
+
+
+def head_dims(text: str) -> set:
+    """The head dims a flash source instantiates: the ``case D: return
+    launch<D>`` lines of its switch over D (any other D returns
+    ``cudaErrorInvalidValue``)."""
+    return {int(d) for d in re.findall(r"case (\d+): return launch<\1>",
+                                       text)}
+
+
+def flash_group_cases(text: str, flash_cases) -> Tuple[dict, set]:
+    """The ``flash`` group's cases for a version whose flash source is
+    ``text``: (name → (B, H, Hkv, Sq, Sk, D, causal), in the order they
+    run: the encoder's and zamba2-7b's shapes, then ``flash_cases``, the
+    version's ``checks.FLASH_CASES``), and the names whose D the source
+    does not instantiate, which the group skips."""
+    cases = {n: (B, H, H, S, S, D, causal)
+             for n, (B, H, S, D, causal) in FLASH.items()}
+    cases.update({f"flash_attention/{tag}": tuple(c)
+                  for tag, c in flash_cases.items()})
+    dims = head_dims(text)
+    return cases, {n for n, c in cases.items() if c[5] not in dims}
+
+
+def _shown(path: Path) -> str:
+    """``path`` relative to this repository when it lies inside it."""
+    root = Path(__file__).resolve().parents[3]
+    try:
+        return str(path.resolve().relative_to(root))
+    except ValueError:
+        return str(path)
+
+
 # the recurrences' backward: each group's training shape in
 # checks.RECUR_BWD_CASES
 RECUR_BWD_TIMED = {"wkv6_bwd": "rwkv6_train", "ssd_bwd": "zamba2_train"}
@@ -168,30 +205,23 @@ def child(label: str, only: str = "") -> dict:
     if "flash" in groups:
         g.manual_seed(0)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        for name, (B, H, S, D, causal) in FLASH.items():
-            q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev)
-                       .to(torch.bfloat16) for _ in range(3))
-            got = FA.flash_attention(q, k, v, causal=causal)
-            exp = ref.attention_ref(q, k, v, causal=causal)
-            res[name] = {"max_abs_err": float((got.float() - exp.float())
-                                              .abs().max()),
-                         **_times(torch, lambda: FA.flash_attention(
-                             q, k, v, causal=causal)),
-                         "library": _times(torch, lambda: sdpa(
-                             q, k, v, is_causal=causal))}
-            del q, k, v, got, exp
-        # the wide heads and MQA (``checks.FLASH_CASES``; none in a tree
-        # from before them)
-        for tag, case in getattr(checks, "FLASH_CASES", {}).items():
-            B, H, Hkv, Sq, Sk, D, causal = case
+        source = Path(_build.CSRC) / GROUPS["flash"]
+        cases, skipped = flash_group_cases(
+            source.read_text(), getattr(checks, "FLASH_CASES", {}))
+        for name, (B, H, Hkv, Sq, Sk, D, causal) in cases.items():
+            # a skipped case's inputs are drawn too: every version gets
+            # the same inputs for each case
             q = torch.randn(B, H, Sq, D, generator=g, device=dev).to(
                 torch.bfloat16)
             k, v = (torch.randn(B, Hkv, Sk, D, generator=g, device=dev)
                     .to(torch.bfloat16) for _ in range(2))
+            if name in skipped:
+                res[name] = {"skipped": f"D not in {_shown(source)}"}
+                continue
             kx, vx = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
             got = FA.flash_attention(q, k, v, causal=causal)
             exp = ref.attention_ref(q, k, v, causal=causal)
-            res[f"flash_attention/{tag}"] = {
+            res[name] = {
                 "max_abs_err": float((got.float() - exp.float()).abs().max()),
                 **_times(torch, lambda: FA.flash_attention(q, k, v,
                                                            causal=causal)),

@@ -1,5 +1,6 @@
 """Serving steps (port of ``repro/serve/__init__.py``): prefill (context →
-cache) and decode (one token per row against its cache).
+cache), decode (one token per row against its cache) and, for an encoder,
+one full encode.
 
 Positions are per row: the reference ``vmap``s a one-row decode over the
 server's slots, the port gives each row of one decode its own position
@@ -164,6 +165,23 @@ def make_feature_step(cfg: ModelConfig) -> Callable:
             1.0)
 
     return feats
+
+
+def make_encode_step(cfg: ModelConfig, *,
+                     device: Optional[Union[str, torch.device]] = None
+                     ) -> Callable:
+    """Encoder-only "serving": encode(params, batch) -> forward's logits
+    (B, S, V) f32 of one full bidirectional encode of ``batch["frames"]``.
+    Entry point: on ``cuda`` unless ``device="cpu"``; the parameters must
+    live there, and the batch is moved there."""
+
+    def encode(params, batch):
+        dev = entry_device(params, device, "encode")
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        logits, _, _ = M.forward(cfg, params, batch)
+        return logits
+
+    return encode
 
 
 @torch.no_grad()

@@ -5,7 +5,8 @@ Imports no JAX: each rank is a fresh process started by
 group of each world size in turn through a file store (rank r takes part
 in the worlds larger than r), and writes what it computed in world w to
 ``<tmp>/w<w>/rank<r>.pt``; the parent compares the world sizes with each
-other and with the JAX reference.
+other and with the JAX reference.  ``run_nccl`` is one rank of an NCCL
+group on its own card (``tests/test_torch_cuda.py``).
 """
 from __future__ import annotations
 
@@ -129,3 +130,39 @@ def _world(world: int, inp) -> dict:
                 shapes[name] = (tuple(t.shape), sp, tuple(local.shape))
         res["dtensor"] = shapes
     return res
+
+
+def sharded_round(inp, shards: int, device) -> dict:
+    """``FedSession.run_sharded`` on ``shards`` ranks of the current
+    process group: the head and each client's decoded wire."""
+    from repro_torch.core import gmm as G
+    from repro_torch.core import head as H
+    from repro_torch.fl import api as A
+
+    sess = A.FedSession(
+        n_classes=inp["C"], summarizer=A.GMMSummarizer(
+            G.GMMConfig(inp["K"], "diag")),
+        head=H.HeadConfig(n_steps=100), shards=shards, transfer_seed=2)
+    res = sess.run_sharded(inp["feats"], inp["labels"], seed=5,
+                           device=device)
+    return {"head": {p: res.model[p].cpu() for p in ("w", "b")},
+            "wire": [{f: m.params[f].cpu() for f in G.WIRE_FIELDS}
+                     for m in res.messages]}
+
+
+def run_nccl(rank: int, world: int, tmp: str, inputs: str) -> None:
+    """Rank ``rank`` of a ``world``-rank NCCL group, one card a rank,
+    joined through a file store: writes its ``sharded_round`` to
+    ``<tmp>/nccl_rank<rank>.pt``."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src"))
+    torch.cuda.set_device(rank)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp}/nccl_store", rank=rank,
+        world_size=world)
+    try:
+        res = sharded_round(torch.load(inputs), world, "cuda")
+        torch.save(res, os.path.join(tmp, f"nccl_rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()

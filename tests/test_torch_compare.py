@@ -110,3 +110,36 @@ def test_ptxas_summary_names_each_kernel_with_its_registers_and_spills():
         "bytes cumulative stack size",
         "rowdot_kernel<bf16>: 0 bytes stack frame, 0 bytes spill stores, 0 "
         "bytes spill loads; Used 29 registers, used 0 barriers"]
+
+
+def _switch_dims(text):
+    """The head dims of a flash source's ``switch (D)``: its ``case``
+    lines up to the ``default``."""
+    body = text[text.index("switch (D) {"):]
+    body = body[:body.index("default:")]
+    return {int(line.split("case ")[1].split(":")[0])
+            for line in body.splitlines() if "case " in line}
+
+
+@pytest.mark.parametrize(
+    "source", [KERNELS / "csrc" / "flash_attention.cu",
+               *sorted((KERNELS / "variants").glob("*.cu"))],
+    ids=lambda p: p.name)
+def test_flash_group_skips_exactly_the_head_dims_a_source_lacks(source):
+    """The ``flash`` group runs every case whose D the version's source
+    instantiates and skips the rest: the variants stop at D = 128, so
+    the wide heads of ``checks.FLASH_CASES`` (160, 192) are skipped there
+    and run in the package's own source."""
+    from repro_torch.kernels import checks
+    text = source.read_text()
+    dims = _switch_dims(text)
+    assert compare.head_dims(text) == dims
+    cases, skipped = compare.flash_group_cases(text, checks.FLASH_CASES)
+    assert len(cases) == len(compare.FLASH) + len(checks.FLASH_CASES)
+    assert skipped == {n for n, c in cases.items() if c[5] not in dims}
+    assert {cases[n][5] for n in skipped} == \
+        {c[5] for c in cases.values()} - dims
+    if source.parent.name == "variants":
+        assert {cases[n][5] for n in skipped} == {160, 192}
+    else:
+        assert not skipped

@@ -919,22 +919,38 @@ def test_prefill_and_decode_on_card_match_the_cpu_path(dev, name, over):
     own positions, through the kernels on the card against the plain CPU
     path on the same weights (bf16); the decode steps launch
     ``attention_cached`` (dense, hybrid) and no plain version."""
-    from repro_torch import serve as S
     cfg = get_config(name).reduced(**over)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     params = M.init_params(cfg, g, device=dev)
-    cpu = _to_cpu(params)
     tokens = torch.randint(1, cfg.vocab_size, (4, 40), device=dev)
-    lengths = np.asarray([37, 21, 30, 9])
+    (card, counts), (plain, _) = prefill_and_decode(cfg, params, tokens)
+    torch.testing.assert_close(card, plain, rtol=5e-2, atol=5e-2)
+    if cfg.family != "ssm":
+        assert counts["attention_cached"] >= 2
+    assert not any(v for k, v in counts.items()
+                   if k.startswith("plain_on_cuda"))
+
+
+PREFILL_LENGTHS = np.asarray([37, 21, 30, 9])
+
+
+def prefill_and_decode(cfg, params, tokens, where=("card", "cpu")):
+    """Each row's prefill of its ``PREFILL_LENGTHS`` tokens into its slot
+    of one cache, then two decode steps of the four rows at their own
+    positions, on the card and on the CPU (the same weights): {where:
+    (the logits (3, 4, V) f32 on the CPU, the launch counts of the
+    decode steps)}."""
+    from repro_torch import serve as S
+    cpu = _to_cpu(params)
     out = {}
-    for where, p, tok in (("card", params, tokens),
-                          ("cpu", cpu, tokens.cpu())):
-        cache = M.init_cache(cfg, 4, 64, device=where.replace("card",
-                                                              "cuda"))
+    for w in where:
+        p, tok = (params, tokens) if w == "card" else (cpu, tokens.cpu())
+        cache = M.init_cache(cfg, 4, 64,
+                             device="cuda" if w == "card" else "cpu")
         decode = S.make_decode_step(cfg)
         rows = []
-        for b, L in enumerate(lengths):    # each row's prefill, its slot
+        for b, L in enumerate(PREFILL_LENGTHS):  # each row's prefill
             view = {k: ({kk: vv[:, b:b + 1] for kk, vv in v.items()}
                         if isinstance(v, dict) else v[:, b:b + 1])
                     for k, v in cache.items()}
@@ -942,19 +958,14 @@ def test_prefill_and_decode_on_card_match_the_cpu_path(dev, name, over):
                 p, {"tokens": tok[b:b + 1, :L]}, cache=view)
             rows.append(last)
         steps = [torch.cat(rows)]
-        nxt = tok[np.arange(4), lengths][:, None]
+        nxt = tok[np.arange(4), PREFILL_LENGTHS][:, None]
         ops.reset_launch_counts()
         for i in range(2):
-            lg, _ = decode(p, cache, nxt, lengths + i)
+            lg, _ = decode(p, cache, nxt, PREFILL_LENGTHS + i)
             steps.append(lg)
         counts = ops.launch_counts()
-        out[where] = (torch.stack(steps).float().cpu(), counts)
-    (card, counts), (plain, _) = out["card"], out["cpu"]
-    torch.testing.assert_close(card, plain, rtol=5e-2, atol=5e-2)
-    if cfg.family != "ssm":
-        assert counts["attention_cached"] >= 2
-    assert not any(v for k, v in counts.items()
-                   if k.startswith("plain_on_cuda"))
+        out[w] = (torch.stack(steps).float().cpu(), counts)
+    return [out[w] for w in where]
 
 
 def test_batched_server_on_card_equals_sequential(dev):
@@ -1051,6 +1062,54 @@ def test_run_sharded_on_one_nccl_rank_is_the_host_star_round(dev):
     finally:
         if started:
             dist.destroy_process_group()
+
+
+def test_run_sharded_over_several_nccl_ranks_is_the_one_rank_head(
+        dev, tmp_path):
+    """``FedSession.run_sharded`` over min(cards, 4) NCCL ranks, one card a
+    rank (spawned, ``tests/_torch_mesh_ranks.py``), against the 1-rank
+    round in this process: every rank's head and decoded wire bit for bit
+    the 1-rank round's (its docstring: results do not depend on the rank
+    count)."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    import _torch_mesh_ranks as ranks
+    from repro_torch.launch import mesh as LM
+    world = min(torch.cuda.device_count(), 4)
+    if world < 2:
+        pytest.skip("needs at least 2 cards: NCCL takes one card a rank")
+    C, K, d, I, N = 5, 3, 64, 8, 300
+    g = torch.Generator().manual_seed(0)
+    labels = torch.randint(0, C, (I, N), generator=g)
+    inp = {"feats": torch.randn(I, N, d, generator=g)
+           + 3.0 * torch.nn.functional.one_hot(labels, d).float(),
+           "labels": labels, "C": C, "K": K}
+    inputs = str(tmp_path / "inputs.pt")
+    torch.save(inp, inputs)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=ranks.run_nccl,
+                         args=(r, world, str(tmp_path), inputs))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+    assert all(not p.is_alive() and p.exitcode == 0 for p in procs), \
+        [(p.is_alive(), p.exitcode) for p in procs]
+    started = LM.ensure_process_group(dev)
+    try:
+        one = ranks.sharded_round(inp, 1, dev)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    for r in range(world):
+        got = torch.load(tmp_path / f"nccl_rank{r}.pt")
+        for a, b in zip(got["wire"], one["wire"]):
+            for f in a:
+                assert torch.equal(a[f], b[f]), (r, f)
+        for p in ("w", "b"):
+            assert torch.equal(got["head"][p], one["head"][p]), (r, p)
 
 
 def test_dryrun_pair_on_card(dev):
