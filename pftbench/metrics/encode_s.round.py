@@ -1,0 +1,9 @@
+"""Seconds a round spends in its encode phase, the mean over the window's
+rounds: encode_s of each round's phase record."""
+
+
+def read(rec):
+    phases = rec.get("phases") if rec.get("kind") == "round" else None
+    if not phases:
+        return None
+    return sum(p["encode_s"] for p in phases) / len(phases)
