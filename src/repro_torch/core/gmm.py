@@ -29,7 +29,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.kernels import ops
 
 COV_TYPES = ("full", "diag", "spher")
@@ -286,13 +286,16 @@ def fit_gmm_batch(x: torch.Tensor, weights: torch.Tensor, cfg: GMMConfig, *,
            "mu": _kmeans_init(x, weights, cfg, init_idx, jitter),
            "cov": _global_cov(x, weights, cfg)}
     wsum = weights.sum(-1).clamp_min(1e-12)
-    for _ in range(cfg.n_iter):
-        lr, norm = _estep_lr(x, gmm, cfg.cov_type)
-        resp = torch.exp(lr - norm[..., None]) * weights[..., None]
-        gmm = _m_step(x, xsq, resp, cfg)
-    # the fused E-step's logsumexp IS the mixture log-density: the final
-    # log-likelihood under the returned parameters needs no extra pass
-    _, norm = _estep_lr(x, gmm, cfg.cov_type)
+    with obs.span("fl.client.em", device=x):
+        for _ in range(cfg.n_iter):
+            lr, norm = _estep_lr(x, gmm, cfg.cov_type)
+            resp = torch.exp(lr - norm[..., None]) * weights[..., None]
+            gmm = _m_step(x, xsq, resp, cfg)
+        # the fused E-step's logsumexp IS the mixture log-density: the
+        # final log-likelihood under the returned parameters needs no
+        # extra pass
+        _, norm = _estep_lr(x, gmm, cfg.cov_type)
+    obs.count("fl.client.em_iters", cfg.n_iter)
     return gmm, (norm * weights).sum(-1) / wsum
 
 

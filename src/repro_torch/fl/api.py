@@ -60,13 +60,12 @@ whole, so the samples do not depend on the rank count.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core import distributed as DF
 from repro_torch.core import dp as DP
 from repro_torch.core import gmm as G
@@ -764,12 +763,12 @@ class Star:
                     f"{session.resilience.max_retries + 1} attempts — "
                     "use FedSession(ingest=...) to degrade instead")
             messages.append(msg)
-        t0 = time.perf_counter()
-        result = session.server_aggregate(
-            messages, generator=round_generator(seed, 0, device),
-            device=device)
-        _sync(device)
-        phase["server_s"] = time.perf_counter() - t0
+        with obs.span("fl.server", timed=True) as sp:
+            result = session.server_aggregate(
+                messages, generator=round_generator(seed, 0, device),
+                device=device)
+            _sync(device)
+        phase["server_s"] = sp.seconds
         result.info["phase_s"] = phase
         if stats["retries"]:
             result.info.setdefault("faults", {}).update(
@@ -907,16 +906,18 @@ class FedSession:
                       generator: torch.Generator, device: torch.device,
                       phase: Optional[Dict] = None) -> ClientMessage:
         """Client ``i``'s summary, encoded: its wire message.  ``phase``,
-        when given, accumulates the fit and encode wall times."""
-        t0 = time.perf_counter()
-        params, counts, lls = self.client_summary(
-            feats, labels, i, generator=generator, device=device)
-        _sync(device)
-        t1 = time.perf_counter()
-        msg = self.encode(params, counts, lls, i)
-        if phase is not None:
-            phase["client_fit_s"] += t1 - t0
-            phase["encode_s"] += time.perf_counter() - t1
+        when given, accumulates the fit and encode wall times (the
+        ``fl.client.fit`` and ``fl.encode`` spans)."""
+        timed = phase is not None
+        with obs.span("fl.client.fit", timed=timed) as fit:
+            params, counts, lls = self.client_summary(
+                feats, labels, i, generator=generator, device=device)
+            _sync(device)
+        with obs.span("fl.encode", timed=timed) as enc:
+            msg = self.encode(params, counts, lls, i)
+        if timed:
+            phase["client_fit_s"] += fit.seconds
+            phase["encode_s"] += enc.seconds
         return msg
 
     def _client_attempt(self, feats, labels, i: int, stats: Dict, *,
@@ -1070,15 +1071,19 @@ class FedSession:
             return self._empty_cohort_result(
                 info, messages, generator=generator, device=device)
         if mode == "streamed":
-            head_params, losses = H.train_head_streaming(
-                chunks, self.n_classes, self.head, generator=generator)
+            with obs.span("fl.server.head", device=device):
+                head_params, losses = H.train_head_streaming(
+                    chunks, self.n_classes, self.head, generator=generator)
             info.update(synthetic_chunks=chunks, head_losses=losses)
         else:
             feats, labels = _concat(chunks)
-            head_params, losses = H.train_head(feats, labels, self.n_classes,
-                                               self.head, generator=generator)
+            with obs.span("fl.server.head", device=device):
+                head_params, losses = H.train_head(
+                    feats, labels, self.n_classes, self.head,
+                    generator=generator)
             info.update(synthetic_feats=feats, synthetic_labels=labels,
                         head_losses=losses)
+        obs.count("fl.server.head_steps", self.head.n_steps)
         return SessionResult(model=head_params, info=info,
                              messages=list(messages))
 
@@ -1097,19 +1102,22 @@ class FedSession:
         time, the capture time spread over the rounds the entry served,
         and the cache's counters."""
         cache = self.program_cache
+        # counted here, not in the program: a replay runs no Python
+        obs.count("fl.server.head_steps", self.head.n_steps)
         if cache is None:
             args = [None if a is None else torch.as_tensor(a).to(device)
                     for a in args]
-            return FR.round_program(*args, sig=sig, head_cfg=self.head,
-                                    samples_per_class=samples_per_class,
-                                    generator=generator)
+            with obs.span("fl.server.head", device=device):
+                return FR.round_program(*args, sig=sig, head_cfg=self.head,
+                                        samples_per_class=samples_per_class,
+                                        generator=generator)
         hits0 = cache.hits
         prog = cache.get(sig, self.head, samples_per_class=samples_per_class,
                          device=device)
-        t0 = time.perf_counter()
-        head_params, losses = prog(*args, generator=generator)
-        _sync(device)
-        run_us = (time.perf_counter() - t0) * 1e6
+        with obs.span("fl.server.head", device=device, timed=True) as sp:
+            head_params, losses = prog(*args, generator=generator)
+            _sync(device)
+        run_us = sp.seconds * 1e6
         info["compile"] = {
             "hit": cache.hits > hits0, "aot": prog.aot,
             "signature": dataclasses.astuple(sig),
@@ -1442,49 +1450,50 @@ class FedSession:
         self._check_sharded_config(I, n_shards)
         feats = self._normalize(torch.as_tensor(feats).to(dev).float())
         labels = torch.as_tensor(labels).to(dev)
-        t0 = time.perf_counter()
         g = self.summarizer.gmm
-        wire, counts, lls = DF.fedpft_transfer(mesh, feats, labels,
-                                               self.n_classes, g,
-                                               seed=self.transfer_seed)
-        _sync(dev)
-        t1 = time.perf_counter()
-        counts = counts.cpu().numpy().astype(np.int64)
-        if self.min_class_count:
-            counts = np.where(counts >= self.min_class_count, counts, 0)
-        validate = self.resilience is not None and self.resilience.validate
-        decoded = messages_from_wire(wire, counts, g.cov_type,
-                                     self.n_classes, self.codec,
-                                     logliks=lls, validate=validate)
-        messages, wire_rejs = decoded if validate else (decoded, [])
-        t2 = time.perf_counter()
+        with obs.span("fl.client.fit", timed=True) as fit:
+            wire, counts, lls = DF.fedpft_transfer(mesh, feats, labels,
+                                                   self.n_classes, g,
+                                                   seed=self.transfer_seed)
+            _sync(dev)
+        with obs.span("fl.encode", timed=True) as enc:
+            counts = counts.cpu().numpy().astype(np.int64)
+            if self.min_class_count:
+                counts = np.where(counts >= self.min_class_count, counts, 0)
+            validate = (self.resilience is not None
+                        and self.resilience.validate)
+            decoded = messages_from_wire(wire, counts, g.cov_type,
+                                         self.n_classes, self.codec,
+                                         logliks=lls, validate=validate)
+            messages, wire_rejs = decoded if validate else (decoded, [])
         # the server phase runs whole on every rank, the same draws on
         # each, so every rank returns the same head
         generator = round_generator(seed, 0, dev)  # lint: disable=KEY-SHARD
-        if not messages:
-            # every client quarantined at the mesh wire: the empty cohort
-            info: Dict = {
-                "comm_bytes": 0,
-                "quarantined": [dataclasses.asdict(r) for r in wire_rejs],
-                "quarantined_bytes": sum(r.comm_bytes for r in wire_rejs),
-                "faults": {"degraded": True, "coverage": 0.0},
-            }
-            result = self._empty_cohort_result(
-                info, [], generator=generator, device=dev,
-                d=int(feats.shape[-1]))
-        else:
-            result = self.server_aggregate(messages, generator=generator,
-                                           device=dev, mesh=mesh)
-            if wire_rejs:
-                result.info.setdefault("quarantined", []).extend(
-                    dataclasses.asdict(r) for r in wire_rejs)
-                result.info["quarantined_bytes"] = (
-                    result.info.get("quarantined_bytes", 0)
-                    + sum(r.comm_bytes for r in wire_rejs))
-                faults = result.info.setdefault("faults", {})
-                faults["degraded"] = True
-                faults["coverage"] = len(messages) / I
-        _sync(dev)
+        with obs.span("fl.server", timed=True) as server:
+            if not messages:
+                # every client quarantined at the mesh wire: the empty cohort
+                info: Dict = {
+                    "comm_bytes": 0,
+                    "quarantined": [dataclasses.asdict(r) for r in wire_rejs],
+                    "quarantined_bytes": sum(r.comm_bytes for r in wire_rejs),
+                    "faults": {"degraded": True, "coverage": 0.0},
+                }
+                result = self._empty_cohort_result(
+                    info, [], generator=generator, device=dev,
+                    d=int(feats.shape[-1]))
+            else:
+                result = self.server_aggregate(messages, generator=generator,
+                                               device=dev, mesh=mesh)
+                if wire_rejs:
+                    result.info.setdefault("quarantined", []).extend(
+                        dataclasses.asdict(r) for r in wire_rejs)
+                    result.info["quarantined_bytes"] = (
+                        result.info.get("quarantined_bytes", 0)
+                        + sum(r.comm_bytes for r in wire_rejs))
+                    faults = result.info.setdefault("faults", {})
+                    faults["degraded"] = True
+                    faults["coverage"] = len(messages) / I
+            _sync(dev)
         result.info.update(
             n_shards=n_shards, mesh_axes=tuple(axes_of(mesh)),
             # what the collective itself moved: the whole padded (I, C, …)
@@ -1493,8 +1502,9 @@ class FedSession:
             mesh_wire_bytes=DF.expected_wire_bytes(
                 g.cov_type, int(feats.shape[-1]), g.n_components,
                 self.n_classes, I),
-            phase_s={"client_fit_s": t1 - t0, "encode_s": t2 - t1,
-                     "server_s": time.perf_counter() - t2})
+            phase_s={"client_fit_s": fit.seconds,
+                     "encode_s": enc.seconds,
+                     "server_s": server.seconds})
         return result
 
     # -- entry point --------------------------------------------------------

@@ -38,7 +38,7 @@ from typing import Any, Dict, List, Optional, Union
 import torch
 import torch.utils.checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.config import ModelConfig
@@ -199,15 +199,30 @@ def _unstack(blocks: Params) -> List[Params]:
             for leaves in zip(*(blocks[k].unbind(0) for k in keys))]
 
 
+# each block function's span: model.transformer_block, model.mamba_block,
+# model.rwkv_block
+_SPAN_NAMES: Dict[Any, str] = {}
+
+
+def _span_name(fn) -> str:
+    name = _SPAN_NAMES.get(fn)
+    if name is None:
+        name = _SPAN_NAMES[fn] = "model." + fn.__name__.lstrip("_")
+    return name
+
+
 def _block(cfg: ModelConfig, fn, *args, **kw):
-    """``fn(*args, **kw)``, under activation checkpointing when
-    ``cfg.remat`` and a graph is being recorded (the reference's
-    ``jax.checkpoint`` around each layer): the backward recomputes the
-    block from its input instead of keeping its activations."""
-    if cfg.remat and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(
-            fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
-    return fn(*args, **kw)
+    """``fn(*args, **kw)`` (``args[1]`` the hidden state) in its
+    ``model.<fn>`` span, under activation checkpointing when ``cfg.remat``
+    and a graph is being recorded (the reference's ``jax.checkpoint``
+    around each layer): the backward recomputes the block from its input
+    instead of keeping its activations."""
+    with obs.span(_span_name(fn), device=args[1]):
+        if cfg.remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(
+                fn, *args, use_reentrant=False, preserve_rng_state=False,
+                **kw)
+        return fn(*args, **kw)
 
 
 def _run_transformer(cfg: ModelConfig, x, blocks, cache=None, *, positions,

@@ -30,6 +30,7 @@ from typing import Deque, Dict, List, Optional, Set, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch import serve as _serve
 from repro_torch.core import head as H
 from repro_torch.fl import ingest as IG
@@ -59,13 +60,17 @@ class AdmissionError(RuntimeError):
 @dataclasses.dataclass
 class ServiceRequest:
     """One request: a token prompt plus its latency lifecycle
-    (``t_submit``/``t_admit``/``t_done`` clock readings)."""
+    (``t_submit``/``t_admit``/``t_done`` readings of the service's clock;
+    ``ns_submit``/``ns_admit`` the same moments on the tracing clock,
+    ``time.time_ns()``, for the ``serve.queued`` interval)."""
     rid: int
     kind: str                      # EXTRACT | INFER
     tokens: np.ndarray             # (L,) prompt
     t_submit: float = 0.0
     t_admit: float = 0.0
     t_done: float = 0.0
+    ns_submit: int = 0
+    ns_admit: int = 0
     feats: Optional[np.ndarray] = None   # (d,) — extraction result
     label: Optional[int] = None          # head argmax — inference result
     done: bool = False
@@ -150,7 +155,8 @@ class FedPFTService:
     def _request(self, kind: str, tokens, **kw) -> ServiceRequest:
         req = ServiceRequest(rid=self._next_rid, kind=kind,
                              tokens=np.asarray(tokens),
-                             t_submit=self.clock(), **kw)
+                             t_submit=self.clock(), ns_submit=time.time_ns(),
+                             **kw)
         self._next_rid += 1
         return req
 
@@ -235,37 +241,44 @@ class FedPFTService:
         batch = self._admit()
         if not batch:
             return 0
-        t_admit = self.clock()
-        B, S = self.scfg.n_slots, self.scfg.max_seq
-        bucket = _serve.pow2_bucket(max(r.tokens.shape[0] for r in batch),
-                                    self.scfg.min_bucket, S)
-        tokens = np.zeros((B, bucket), dtype=np.int64)
-        length = np.zeros((B,), dtype=np.int64)
-        for i, r in enumerate(batch):
-            L = r.tokens.shape[0]
-            tokens[i, :L] = r.tokens
-            length[i] = L
-            r.t_admit = t_admit
-        self._feature_shapes.add((B, bucket))
-        feats = self._feats(self.params,
-                            torch.from_numpy(tokens).to(self.device),
-                            torch.from_numpy(length).to(self.device))
-        infer_rows = [i for i, r in enumerate(batch) if r.kind == INFER]
-        labels_h = None
-        if infer_rows:
-            labels_h = torch.argmax(H.head_logits(self.head, feats),
-                                    dim=-1).cpu().numpy()
-        feats_h = feats.cpu().numpy()
-        t_done = self.clock()
-        for i, r in enumerate(batch):
-            if r.kind == EXTRACT:
-                r.feats = feats_h[i]
-            else:
-                r.label = int(labels_h[i])
-            r.t_done, r.done = t_done, True
-            self.completed[r.kind].append(r)
-        self.steps += 1
-        return len(batch)
+        with obs.span("serve.step"):
+            t_admit, ns_admit = self.clock(), time.time_ns()
+            B, S = self.scfg.n_slots, self.scfg.max_seq
+            bucket = _serve.pow2_bucket(max(r.tokens.shape[0] for r in batch),
+                                        self.scfg.min_bucket, S)
+            tokens = np.zeros((B, bucket), dtype=np.int64)
+            length = np.zeros((B,), dtype=np.int64)
+            real = 0
+            for i, r in enumerate(batch):
+                L = r.tokens.shape[0]
+                tokens[i, :L] = r.tokens
+                length[i] = L
+                real += L
+                r.t_admit, r.ns_admit = t_admit, ns_admit
+                obs.interval("serve.queued", r.ns_submit, ns_admit, rid=r.rid)
+            obs.count("serve.real_tokens", real)
+            obs.count("serve.slot_positions", B * bucket)
+            self._feature_shapes.add((B, bucket))
+            feats = self._feats(self.params,
+                                torch.from_numpy(tokens).to(self.device),
+                                torch.from_numpy(length).to(self.device))
+            infer_rows = [i for i, r in enumerate(batch) if r.kind == INFER]
+            labels_h = None
+            with obs.span("serve.step.fetch"):
+                if infer_rows:
+                    labels_h = torch.argmax(H.head_logits(self.head, feats),
+                                            dim=-1).cpu().numpy()
+                feats_h = feats.cpu().numpy()
+            t_done = self.clock()
+            for i, r in enumerate(batch):
+                if r.kind == EXTRACT:
+                    r.feats = feats_h[i]
+                else:
+                    r.label = int(labels_h[i])
+                r.t_done, r.done = t_done, True
+                self.completed[r.kind].append(r)
+            self.steps += 1
+            return len(batch)
 
     def drain(self) -> int:
         """Step until both queues are empty; returns requests completed."""
@@ -316,7 +329,8 @@ class FedPFTService:
         return len(self._feature_shapes)
 
     def stats(self) -> Dict:
-        """Throughput and latency per traffic class, broker accounting."""
+        """Throughput, latency and queue wait (admission less submission)
+        per traffic class, broker accounting."""
         out: Dict = {"steps": self.steps, "rounds": self.rounds,
                      "rejected_no_head": self.rejected_no_head,
                      "shed_extracts": self.shed_extracts,
@@ -329,6 +343,7 @@ class FedPFTService:
                 out[kind] = {"n": 0}
                 continue
             lat = np.asarray([r.t_done - r.t_submit for r in reqs])
+            wait = np.asarray([r.t_admit - r.t_submit for r in reqs])
             span = (max(r.t_done for r in reqs)
                     - min(r.t_submit for r in reqs))
             out[kind] = {
@@ -336,5 +351,7 @@ class FedPFTService:
                 "rps": len(reqs) / span if span > 0 else float("inf"),
                 "p50_us": float(np.percentile(lat, 50) * 1e6),
                 "p99_us": float(np.percentile(lat, 99) * 1e6),
+                "wait_p50_us": float(np.percentile(wait, 50) * 1e6),
+                "wait_p99_us": float(np.percentile(wait, 99) * 1e6),
             }
         return out
