@@ -376,6 +376,7 @@ def kernel_phase(torch, dev, card):
     cached_checks(torch, dev, g, res)
     bwd_checks(torch, dev, g, res)
     recur_bwd_checks(torch, dev, g, res)
+    rms_norm_checks(torch, dev, g, res)
     moe_layer_checks(torch, card)
 
     for name, r in res.items():
@@ -551,6 +552,75 @@ def bwd_checks(torch, dev, g, res):
         del q, k, v, do, o, lse, got, exp
     res["flash_attention_bwd"] = dict(shapes[0], by_shape=shapes)
     emit({"phase": "bwd_checks", "s": time.perf_counter() - t_phase})
+
+
+def rms_norm_checks(torch, dev, g, res):
+    """The one-pass norm against its plain version at
+    ``kernels.checks.RMS_NORM_CASES``: in bf16 the norm at most one bf16
+    step apart and equal on at least 99.9 % of the values, the gated norm
+    at most two steps apart (one step of the norm before the product) and
+    its kernel's own norm times silu(z) to a step; in f32 within 1e-5
+    relative.  Times at the benchmark's rows (``RMS_NORM_TIMED``) beside
+    the bound of reading x (and z) and writing the output once, the plain
+    version and ``F.rms_norm`` where PyTorch has it (a yardstick, never
+    the path)."""
+    from repro_torch.kernels import checks, ref
+    from repro_torch.kernels import rms_norm as RMS
+    lib_norm = getattr(torch.nn.functional, "rms_norm", None)
+    shapes = []
+    for tag, (rows, d, dt, gated) in checks.RMS_NORM_CASES.items():
+        x, gamma, z = checks.rms_norm_inputs(g, dev, rows, d, dt, gated)
+        got = RMS.rms_norm(x, gamma, z=z)
+        exp = ref.rms_norm_ref(x, gamma, z=z)
+        shape = dict(case=tag, rows=rows, d=d, dtype=str(dt), gated=gated,
+                     plan=RMS.launch_plan(d, rows, x.element_size())
+                     ._asdict())
+        if dt == torch.bfloat16:
+            steps = checks.bf16_steps(got, exp)
+            worst, equal = int(steps.max()), float((steps == 0).float()
+                                                   .mean())
+            # the gate: the kernel's own norm times silu(z), as the plain
+            # expression rounds them, to a step (one step of the norm may
+            # be two of the product, whose exponent may be the higher)
+            own = (int(checks.bf16_steps(got, RMS.rms_norm(x, gamma) *
+                                         torch.nn.functional.silu(z)).max())
+                   if gated else 0)
+            emit({"phase": "kernel_check", "kernel": "rms_norm", **shape,
+                  "max_bf16_steps": worst, "equal_share": equal,
+                  "gate_steps_from_own_norm": own})
+            if worst > 1 + gated or equal < 0.999 or own > 1:
+                raise AssertionError(f"rms_norm {tag}: {worst} bf16 steps "
+                                     f"apart, {equal} equal, the gate "
+                                     f"{own} steps off")
+            err = float((got.float() - exp.float()).abs().max())
+        else:
+            err = check_close(torch, "rms_norm", got, exp, 1e-5, **shape)
+        if tag not in checks.RMS_NORM_TIMED:
+            continue
+
+        def call():
+            return RMS.rms_norm(x, gamma, z=z)
+
+        def lib():
+            return lib_norm(x, (d,), gamma, 1e-6)
+        es = x.element_size()
+        r = dict(case=tag, shape=[rows, d], gated=gated, max_abs_err=err,
+                 ms=time_ms(torch, call), device_ms=device_ms(torch, call),
+                 graph_ms=graph_ms(torch, call),
+                 plain_ms=time_ms(torch, lambda: ref.rms_norm_ref(
+                     x, gamma, z=z)),
+                 library_ms=(time_ms(torch, lib)
+                             if lib_norm is not None and not gated else None),
+                 flops=rows * d * (4.0 + 5.0 * gated),
+                 bytes=float(es * (rows * d * (2 + gated) + d)),
+                 peak=F32_FLOPS)
+        r["bound_ms"] = 1e3 * max(r["flops"] / r["peak"],
+                                  r["bytes"] / HBM_BYTES_S)
+        r["bound_by"] = ("operations" if r["flops"] / r["peak"]
+                         >= r["bytes"] / HBM_BYTES_S else "bytes")
+        shapes.append(r)
+        del x, gamma, z, got, exp
+    res["rms_norm"] = dict(shapes[0], by_shape=shapes)
 
 
 def few_ms(torch, fn, n: int = 3) -> float:
@@ -935,12 +1005,17 @@ def n_params_of(tree) -> int:
 # each backbone's main path: the kernels it must launch, per layer and
 # batch, besides the E-step of the client EM
 PATHS = {
-    "hubert-xlarge": {"flash_attention": lambda cfg: cfg.n_layers},
-    "rwkv6-3b": {"wkv6": lambda cfg: cfg.n_layers},
+    "hubert-xlarge": {"flash_attention": lambda cfg: cfg.n_layers,
+                      "rms_norm": lambda cfg: 2 * cfg.n_layers + 1},
+    "rwkv6-3b": {"wkv6": lambda cfg: cfg.n_layers,
+                 "rms_norm": lambda cfg: 3 * cfg.n_layers + 1},
     "zamba2-7b": {"ssd": lambda cfg: cfg.n_layers,
                   "flash_attention": lambda cfg: cfg.n_layers
-                  // cfg.attn_every},
-    "granite-moe-3b-a800m": {"flash_attention": lambda cfg: cfg.n_layers},
+                  // cfg.attn_every,
+                  "rms_norm": lambda cfg: 2 * cfg.n_layers
+                  + 2 * (cfg.n_layers // cfg.attn_every) + 1},
+    "granite-moe-3b-a800m": {"flash_attention": lambda cfg: cfg.n_layers,
+                             "rms_norm": lambda cfg: 2 * cfg.n_layers + 1},
 }
 
 
@@ -1160,7 +1235,8 @@ BLOCK_KERNEL = {"transformer": "flash_attention", "shared": "flash_attention",
                 "rwkv6": "wkv6", "mamba2": "ssd"}
 # the wrappers of ``kernels.ops`` that the depth phase swaps, and the
 # names their kernels count launches under
-DEPTH_OPS = {"attention": "flash_attention", "wkv6": "wkv6", "ssd": "ssd"}
+DEPTH_OPS = {"attention": "flash_attention", "wkv6": "wkv6", "ssd": "ssd",
+             "rms_norm": "rms_norm"}
 
 
 def block_plan(cfg):
@@ -1243,11 +1319,12 @@ def depth_phase(torch, dev, card, cfg, params, name, rows, encode_batch):
     the main path's first batch), layer by layer, three passes in step:
 
     1. the kernel stack (bf16): the main path's own code, every
-       ``ops.attention`` / ``wkv6`` / ``ssd`` call launching its kernel
+       ``ops.attention`` / ``wkv6`` / ``ssd`` / ``rms_norm`` call
+       launching its kernel
        and then held against its plain version in f32 on that call's own
        inputs (``check_close``, the dry-run checks' tolerances: a call
        outside them fails the phase);
-    2. the plain stack (bf16): the plain versions in place of the three
+    2. the plain stack (bf16): the plain versions in place of the four
        kernels;
     3. the plain stack in f32, each layer's weights cast as it is reached.
 
@@ -1266,10 +1343,12 @@ def depth_phase(torch, dev, card, cfg, params, name, rows, encode_batch):
     from repro_torch.models import model as M
 
     plain = {"attention": ref.attention_ref, "wkv6": ref.wkv6_ref,
-             "ssd": ref.ssd_ref}
-    # the main path runs in bf16: the dry-run checks' bf16 tolerances
+             "ssd": ref.ssd_ref, "rms_norm": ref.rms_norm_ref}
+    # the main path runs in bf16: the dry-run checks' bf16 tolerances (the
+    # norm rounds its f32 result to bf16, and gated twice more: at most
+    # three half steps, 2^-9 relative each)
     tol = {"attention": checks.FLASH_TOL_BF16, "wkv6": REC_TOL_BF16,
-           "ssd": REC_TOL_BF16}
+           "ssd": REC_TOL_BF16, "rms_norm": REC_TOL_BF16}
     kernel = {n: getattr(ops, n) for n in DEPTH_OPS}
     at = {"step": 0}
     worst = {}
@@ -1277,8 +1356,10 @@ def depth_phase(torch, dev, card, cfg, params, name, rows, encode_batch):
     def held(n):
         def call(*args, **kw):
             out = kernel[n](*args, **kw)
-            exp = plain[n](*(a.float() for a in args), **kw)
-            pairs = (zip(("out",), (out,), (exp,)) if n == "attention"
+            exp = plain[n](*(a.float() if torch.is_tensor(a) else a
+                             for a in args), **kw)
+            pairs = (zip(("out",), (out,), (exp,))
+                     if n in ("attention", "rms_norm")
                      else zip(("out", "state"), out, exp))
             for o, a, e in pairs:
                 err = check_close(torch, DEPTH_OPS[n], a, e, tol[n],
@@ -1408,7 +1489,8 @@ def depth_phase(torch, dev, card, cfg, params, name, rows, encode_batch):
               "launches": launched, "plain_on_cuda": plain_calls,
               "finite": bool(torch.isfinite(logits).all()),
               "pass1_logits_bitwise": same})
-        if launched != {"flash_attention": cfg.n_layers} or plain_calls:
+        if launched != {"flash_attention": cfg.n_layers,
+                        "rms_norm": 2 * cfg.n_layers + 1} or plain_calls:
             raise AssertionError(f"encode step of {name}: launches "
                                  f"{launched}, plain {plain_calls}")
         if (tuple(logits.shape) != (B, Sq, cfg.vocab_size)
@@ -3402,10 +3484,7 @@ def main() -> int:
           "python": sys.version.split()[0]})
 
     t0 = time.perf_counter()
-    reports = _build.build(["gmm_estep.cu", "flash_attention.cu", "wkv6.cu",
-                            "ssd.cu", "attention_cached.cu",
-                            "flash_attention_bwd.cu", "wkv6_bwd.cu",
-                            "ssd_bwd.cu"])
+    reports = _build.build(_build.SOURCES)
     emit({"phase": "build", "s": time.perf_counter() - t0,
           "ptxas": {s: _build.ptxas_summary(r)
                     for s, r in reports.items()}})
@@ -3449,7 +3528,10 @@ def main() -> int:
                # no TPU kernel: XLA's autodiff of wkv6_chunked, ssd_chunked
                "wkv6_bwd": ("src/repro_torch/kernels/csrc/wkv6_bwd.cu",
                             None),
-               "ssd_bwd": ("src/repro_torch/kernels/csrc/ssd_bwd.cu", None)}
+               "ssd_bwd": ("src/repro_torch/kernels/csrc/ssd_bwd.cu", None),
+               # no TPU kernel: XLA fuses the reference's rms_norm
+               "rms_norm": ("src/repro_torch/kernels/csrc/rms_norm.cu",
+                            None)}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms")
     kernels = []
@@ -3468,6 +3550,11 @@ def main() -> int:
         if name in ("wkv6_bwd", "ssd_bwd"):
             entry.update({kk: kres[name][kk] for kk in (
                 "case", "shape", "graph_ms")})
+        if name == "rms_norm":
+            entry["by_shape"] = [
+                {kk: r[kk] for kk in ("case", "shape", "gated", *keys,
+                                      "graph_ms")}
+                for r in kres[name]["by_shape"]]
         if name == "flash_attention_bwd":
             entry.update({kk: kres[name][kk] for kk in (
                 "shape", "graph_ms", "library_device_ms")})

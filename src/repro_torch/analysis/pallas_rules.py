@@ -34,7 +34,8 @@ The probe grid is the reference's E-step and flash probes plus the dry
 run's long shapes (flash at S 32 768, its backward at D = 160 and 192,
 ``attention_cached`` over 32 768 keys and a ring of 8192, ``wkv6`` /
 ``ssd`` at T 32 768 and their backwards at 4096), and small f32 shapes
-for the CUDA-core routes.  Without a card (``device="cpu"``) the rule
+for the CUDA-core routes; ``rms_norm`` at the main paths' rows, at
+nemotron-4-340b's width in f32 and at an odd width.  Without a card (``device="cpu"``) the rule
 emits one INFO finding per source saying it was not checked.
 """
 from __future__ import annotations
@@ -67,6 +68,7 @@ WRAPPERS = {
     "wkv6_bwd.cu": "repro_torch/kernels/wkv6_bwd.py",
     "ssd.cu": "repro_torch/kernels/ssd.py",
     "ssd_bwd.cu": "repro_torch/kernels/ssd_bwd.py",
+    "rms_norm.cu": "repro_torch/kernels/rms_norm.py",
 }
 
 
@@ -227,6 +229,15 @@ def _ssd(Bt, H, T, N, P, dtype, bwd=False):
     return call
 
 
+def _rms_norm(rows, d, dtype, gate=False, z_stride=0):
+    def call(dev):
+        from repro_torch.kernels import rms_norm as R
+        x = _t((rows, d), dtype, dev)
+        z = _t((rows, z_stride or d), dtype, dev)[:, :d] if gate else None
+        R.rms_norm(x, _t((d,), dtype, dev), z=z)
+    return call
+
+
 def kernel_probes() -> List[KernelProbe]:
     P = KernelProbe
     return [
@@ -284,6 +295,17 @@ def kernel_probes() -> List[KernelProbe]:
           _ssd(1, 112, 4096, 64, 64, "bfloat16", bwd=True)),
         P("ssd_bwd[f32]", "ssd_bwd.cu", "f32",
           _ssd(1, 4, 200, 64, 64, "float32", bwd=True)),
+        # the norm at hubert-xlarge's rows, zamba2-7b's gated rows (z a
+        # split view of the in-projection), nemotron-4-340b's width in f32
+        # (the row in shared memory) and an odd width (one value a load)
+        P("rms_norm[d1280]", "rms_norm.cu", "bf16",
+          _rms_norm(16384, 1280, "bfloat16")),
+        P("rms_norm[gated_d7168]", "rms_norm.cu", "bf16",
+          _rms_norm(32768, 7168, "bfloat16", gate=True, z_stride=14576)),
+        P("rms_norm[f32_d18432]", "rms_norm.cu", "f32",
+          _rms_norm(16, 18432, "float32")),
+        P("rms_norm[odd]", "rms_norm.cu", "bf16",
+          _rms_norm(5, 1283, "bfloat16")),
     ]
 
 

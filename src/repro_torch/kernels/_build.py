@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 SOURCES = ("gmm_estep.cu", "flash_attention.cu", "wkv6.cu", "ssd.cu",
            "attention_cached.cu", "flash_attention_bwd.cu", "wkv6_bwd.cu",
-           "ssd_bwd.cu")
+           "ssd_bwd.cu", "rms_norm.cu")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _PLANNING: List[List[dict]] = []

@@ -1,8 +1,9 @@
 """Check cases of the kernels: the E-step's shapes, those of the
 recurrent kernels ``wkv6`` and ``ssd``, flash attention at the wide heads,
-and the cache layouts of cached attention.
+the cache layouts of cached attention, and the norm's rows.
 
-Shared by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``, which hold the
+Shared by ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` (the norm's:
+``tests/test_torch_rms_norm.py``), which hold the
 CUDA kernels against their plain versions on a card, and (the shapes) by
 ``tests/test_torch_recurrent.py``, which holds the plain versions against
 the JAX package: the check shapes, inputs drawn from a ``torch.Generator``,
@@ -161,6 +162,44 @@ def cached_inputs(g: torch.Generator, dev, B, H, Hkv, Sq, Sk, D, window,
     q = rnd(B, Sq, H, D).transpose(1, 2)
     k, v = (rnd(B, n_keys, Hkv, D).transpose(1, 2) for _ in range(2))
     return q, k, v, q_pos.int(), kv_pos.int()
+
+
+# the one-pass RMS norm, tag: (rows, d, dtype, gated): the benchmark's
+# rows (hubert-xlarge's 256 clips of 64 frames, zamba2-7b's 256 documents
+# of 128 tokens: its ln and its gated norm over d_inner), 16 decode rows,
+# f32 (at nemotron-4-340b's width the row waits in shared memory) and an
+# odd width (one value a load).  The first three are timed.
+RMS_NORM_CASES = {"d1280": (16384, 1280, torch.bfloat16, False),
+                  "d3584": (32768, 3584, torch.bfloat16, False),
+                  "gated_d7168": (32768, 7168, torch.bfloat16, True),
+                  "decode_d1280": (16, 1280, torch.bfloat16, False),
+                  "decode_gated": (16, 7168, torch.bfloat16, True),
+                  "f32_d3584": (4096, 3584, torch.float32, False),
+                  "f32_gated": (4096, 7168, torch.float32, True),
+                  "f32_smem": (16, 18432, torch.float32, False),
+                  "odd": (300, 1283, torch.bfloat16, True)}
+RMS_NORM_TIMED = ("d1280", "d3584", "gated_d7168")
+
+
+def rms_norm_inputs(g: torch.Generator, dev, rows, d, dtype, gated=False):
+    """(x, gamma, z or None): x (rows, d) ~ 3 N(0, 1), gamma ~ 1 + 0.1
+    N(0, 1), and z the first d columns of a (rows, 2 d + 240) tensor, as
+    the Mamba2 gate is a split view of the in-projection."""
+    x = torch.randn(rows, d, generator=g, device=dev).mul_(3.0).to(dtype)
+    gamma = (1.0 + 0.1 * torch.randn(d, generator=g, device=dev)).to(dtype)
+    if not gated:
+        return x, gamma, None
+    proj = torch.randn(rows, 2 * d + 240, generator=g, device=dev)
+    return x, gamma, proj.mul_(2.0).to(dtype)[:, :d]
+
+
+def bf16_steps(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """How many bf16 steps apart two bf16 tensors are, value by value (the
+    bit patterns as integers in the order of the values)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(got) - ordered(want)).abs()
 
 
 def estep_inputs(g: torch.Generator, dev, Bx, B, N, K, d, spher=False):

@@ -3,7 +3,7 @@
     python3 src/repro_torch/kernels/compare.py --tree NAME=DIR [--tree ...]
         [--flash NAME=BASE:FILE.cu[:ABLATION] ...]
         [--ablate NAME=BASE:ABLATION[:ABLATION] ...] [--rounds 2]
-        [--only flash,ssd,wkv6,estep,cached,bwd,wkv6_bwd,ssd_bwd]
+        [--only flash,ssd,wkv6,estep,cached,bwd,wkv6_bwd,ssd_bwd,rms_norm]
         [--out build/compare.jsonl]
     python3 src/repro_torch/kernels/compare.py --sweep-estep
         [--out build/estep_plans.jsonl]
@@ -50,9 +50,10 @@ at the training shapes ``BWD_TIMED``, each that the tree's
 ``checks.BWD_CASES`` and head dims hold, with SDPA's backward beside it;
 ``wkv6_bwd``, ``ssd_bwd``: the recurrences' backward at rwkv6-3b's and
 zamba2-7b's training shapes, ``checks.RECUR_BWD_CASES``, with each
-kernel's time per call from ``torch.profiler``, ``phases_ms``); a tree from
-before ``attention_cached`` or a backward needs ``--only`` without its
-group.  Prints
+kernel's time per call from ``torch.profiler``, ``phases_ms``;
+``rms_norm``: the one-pass norm at the benchmark's rows,
+``checks.RMS_NORM_TIMED``); a tree from before ``attention_cached``, a
+backward or the norm needs ``--only`` without its group.  Prints
 one JSON object per version and round, then a summary; writes both to
 ``--out``.
 ``--sweep-estep`` times every launch plan of the E-step kernel at the main
@@ -140,7 +141,7 @@ def _times(torch, fn) -> dict:
 GROUPS = {"flash": "flash_attention.cu", "ssd": "ssd.cu", "wkv6": "wkv6.cu",
           "estep": "gmm_estep.cu", "cached": "attention_cached.cu",
           "bwd": "flash_attention_bwd.cu", "wkv6_bwd": "wkv6_bwd.cu",
-          "ssd_bwd": "ssd_bwd.cu"}
+          "ssd_bwd": "ssd_bwd.cu", "rms_norm": "rms_norm.cu"}
 
 
 def head_dims(text: str) -> set:
@@ -350,6 +351,23 @@ def child(label: str, only: str = "") -> dict:
             **_times(torch, call), "graph_ms": graph_ms(torch, call),
             "phases_ms": kernel_ms(torch, call)}
         del args, dout, dS
+    if "rms_norm" in groups:
+        from repro_torch.kernels import rms_norm as RMS
+        # the benchmark's rows, drawn in turn from one stream of their own:
+        # the same in every version
+        gn = torch.Generator(device=dev)
+        gn.manual_seed(5)
+        for tag in checks.RMS_NORM_TIMED:
+            rows, d, dt, gated = checks.RMS_NORM_CASES[tag]
+            x, gamma, z = checks.rms_norm_inputs(gn, dev, rows, d, dt, gated)
+
+            def norm():
+                return RMS.rms_norm(x, gamma, z=z)
+            res[f"rms_norm/{tag}"] = {
+                "max_abs_err": float((norm().float() - ref.rms_norm_ref(
+                    x, gamma, z=z).float()).abs().max()),
+                **_times(torch, norm), "graph_ms": graph_ms(torch, norm)}
+            del x, gamma, z
     return res
 
 

@@ -30,18 +30,19 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import gmm_estep as _ge
 from repro_torch.kernels import ref
+from repro_torch.kernels import rms_norm as _rms
 from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import ssd_bwd as _ssdb
 from repro_torch.kernels import wkv6 as _wkv6
 from repro_torch.kernels import wkv6_bwd as _wkv6b
 
 __all__ = ["gmm_estep", "gmm_estep_fused", "attention", "attention_cached",
-           "wkv6", "ssd", "launch_counts", "reset_launch_counts",
+           "wkv6", "ssd", "rms_norm", "launch_counts", "reset_launch_counts",
            "record_calls", "Call", "TensorSpec", "OUTPUT_CHECKS"]
 
 _KERNEL_COUNTS = (_ge.LAUNCHES, _fa.LAUNCHES, _fab.LAUNCHES, _ac.LAUNCHES,
                   _wkv6.LAUNCHES, _wkv6b.LAUNCHES, _ssd.LAUNCHES,
-                  _ssdb.LAUNCHES)
+                  _ssdb.LAUNCHES, _rms.LAUNCHES)
 
 
 def _wants_grad(*tensors) -> bool:
@@ -206,6 +207,21 @@ def ssd(x, a_log, B, C, s0, chunk: int = 64):
     else:
         out = ref.ssd_ref(x, a_log, B, C, s0, chunk=chunk)
     return _checked("ssd", out)
+
+
+def rms_norm(x, gamma, z=None, eps: float = 1e-6):
+    """(…, d) RMS norm over the last dim → (…, d) in x's dtype; with the
+    gate ``z`` (x's shape) times silu(z).  On the card the one-pass kernel,
+    which has no backward: a call that wants a gradient raises (the model
+    keeps the plain expression for training, ``models.layers.rms_norm``)."""
+    if x.is_cuda:
+        if _wants_grad(x, gamma, z):
+            raise ValueError("rms_norm: the kernel has no backward; take "
+                             "ref.rms_norm_ref where a gradient is wanted")
+        out = _rms.rms_norm(x, gamma, z, eps=eps)
+    else:
+        out = ref.rms_norm_ref(x, gamma, z, eps=eps)
+    return _checked("rms_norm", out)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -8,9 +8,10 @@ show that its main path never took a plain version on the card.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 _LOG2PI = math.log(2.0 * math.pi)
 
@@ -238,6 +239,21 @@ def attention_positions_ref(q: torch.Tensor, k: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return o.reshape(q.shape).to(q.dtype)
+
+
+def rms_norm_ref(x: torch.Tensor, gamma: torch.Tensor,
+                 z: Optional[torch.Tensor] = None, eps: float = 1e-6
+                 ) -> torch.Tensor:
+    """RMS norm over the last dim: (x · rsqrt(mean(x²) + eps)) · gamma in
+    f32, cast to x's dtype; with the gate ``z`` (Mamba2's gated norm) that
+    times silu(z), each in x's dtype.  Not counted in ``CUDA_CALLS``:
+    training takes it on the card by design (``models.layers.rms_norm``
+    counts its rows under ``model.rms_norm.plain_rows``)."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(-1, keepdim=True)
+    y = (x * torch.rsqrt(var + eps) * gamma.float()).to(dt)
+    return y if z is None else y * F.silu(z)
 
 
 def _chunk_len(T: int, chunk: int) -> int:

@@ -27,7 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch import obs
+from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
 
 
@@ -52,12 +53,19 @@ def dense_stack(n_layers: int, shape, dtype, generator: torch.Generator,
     return out
 
 
-def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    dt = x.dtype
-    x = x.float()
-    var = x.square().mean(-1, keepdim=True)
-    return (x * torch.rsqrt(var + eps) * gamma.float()).to(dt)
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6,
+             z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """RMS norm over the last dim in f32, cast to x's dtype; with the gate
+    ``z``, times silu(z) (Mamba2's gated norm).  Without a gradient wanted
+    ``ops.rms_norm`` (the one-pass kernel on the card); with one, the plain
+    expression, whose rows on the card count under
+    ``model.rms_norm.plain_rows``."""
+    if not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, gamma, z))):
+        return ops.rms_norm(x, gamma, z, eps=eps)
+    if x.is_cuda:
+        obs.count("model.rms_norm.plain_rows", x.numel() // x.shape[-1])
+    return ref.rms_norm_ref(x, gamma, z, eps=eps)
 
 
 def rope_frequencies(head_dim: int, theta: float,

@@ -10,7 +10,9 @@ the card, the plain chunked version on the CPU (the reference calls its XLA
 dtypes follow the reference (the conv sums its taps in ``cfg.dtype``, x·Δ
 is cast to x's dtype), or bf16 parity drifts.  The conv keeps its last
 conv_width − 1 inputs as state; a single decode step is ``ssd_decode``,
-plain torch as the reference's XLA (one step needs no kernel).
+plain torch as the reference's XLA (one step needs no kernel).  The gated
+norm ``rms_norm(y, gn) · silu(z)`` is one ``ops.rms_norm`` call, which
+reads ``z`` through its split view of the in-projection.
 """
 from __future__ import annotations
 
@@ -114,7 +116,7 @@ def mamba_block(cfg: ModelConfig, x: torch.Tensor, w, state, *,
                        chunk=cfg.chunk_size)
     y = y + w["D"][None, :, None, None].to(y.dtype) * xh
     y = y.transpose(1, 2).reshape(Bt, T, d_inner)
-    y = rms_norm(y, w["gn"]) * F.silu(z)
+    y = rms_norm(y, w["gn"], z=z)                         # · silu(z)
     return x + y @ w["w_out"], {"conv": new_conv, "S": S}
 
 

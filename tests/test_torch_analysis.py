@@ -576,7 +576,7 @@ def test_launch_contract_says_it_was_not_checked_without_a_card():
              for a in pallas_rules.WRAPPERS.values()]
     fs = core.analyze_paths(files, rules=[pallas_rules.LaunchContractRule()],
                             device="cpu")
-    assert len(fs) == 8 == len(pallas_rules.WRAPPERS)
+    assert len(fs) == 9 == len(pallas_rules.WRAPPERS)
     assert all(f.severity == core.Severity.INFO and "not checked"
                in f.message for f in fs)
     # every source has a probe

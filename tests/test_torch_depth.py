@@ -32,6 +32,7 @@ from repro_torch import serve as S
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
+from repro_torch.kernels import rms_norm as RMS
 from repro_torch.kernels import ssd as SSD
 from repro_torch.kernels import wkv6 as WKV
 from repro_torch.models import model as M
@@ -111,7 +112,7 @@ def _counting(monkeypatch, scale=None):
     kernel's launch; ``scale`` multiplies attention's output (a kernel
     that disagrees)."""
     tables = {"attention": FA.LAUNCHES, "wkv6": WKV.LAUNCHES,
-              "ssd": SSD.LAUNCHES}
+              "ssd": SSD.LAUNCHES, "rms_norm": RMS.LAUNCHES}
     for n, kname in chip_smoke.DEPTH_OPS.items():
         plain = getattr(ops, n)
 
@@ -151,19 +152,20 @@ def test_depth_phase_on_the_cpu(name, monkeypatch, capsys):
     assert summary["features_bitwise"] and summary["blocks"] == len(plan)
     # each kernel call of pass 1 held once per output, at its step
     checks = [ln for ln in lines if ln.get("phase") == "kernel_check"]
-    outputs = {"flash_attention": 1, "wkv6": 2, "ssd": 2}
+    outputs = {"flash_attention": 1, "wkv6": 2, "ssd": 2, "rms_norm": 1}
     assert len(checks) == sum(n * outputs[k] for k, n in expect.items())
     assert all(ln["mismatches"] == 0 and ln["case"] == f"depth {name}"
                for ln in checks)
-    assert {ln["step"] for ln in checks} == {
-        i + 1 for i, (k, _) in enumerate(plan)}
+    # every block's step, and the last norm's (the pooled step)
+    assert {ln["step"] for ln in checks} == set(range(1, len(plan) + 2))
     # pass 1 runs the plain versions here (the counting stand-ins), as
     # pass 2 does: they carry the same error
     assert summary["carried"]["last"][0] == summary["carried"]["last"][1]
     assert summary["kernel_over_2x_plain"] is None
     encode = [ln for ln in lines if ln.get("phase") == "encode_step"]
     if cfg.family == "encoder":
-        assert encode[0]["launches"] == {"flash_attention": cfg.n_layers}
+        assert encode[0]["launches"] == {"flash_attention": cfg.n_layers,
+                                         "rms_norm": 2 * cfg.n_layers + 1}
         assert encode[0]["pass1_logits_bitwise"]
         assert encode[0]["logits_shape"] == [3, 16, cfg.vocab_size]
         assert counts[f"encode_step/{name}"]["flash_attention"] == \
@@ -185,7 +187,8 @@ def test_a_kernel_off_its_plain_version_fails_the_phase(monkeypatch,
                                _rows(cfg, 2))
     assert {n: getattr(ops, n) for n in chip_smoke.DEPTH_OPS} == swapped
     (check,) = [ln for ln in _lines(capsys)
-                if ln.get("phase") == "kernel_check"]
+                if ln.get("phase") == "kernel_check"
+                and ln["kernel"] == "flash_attention"]
     assert check["step"] == 1 and check["mismatches"] > 0
 
 
